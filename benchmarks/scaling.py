@@ -6,13 +6,13 @@ mesh and the global grid together (fixed work per device), and reports
 weak-scaling efficiency — the BASELINE.md north-star metric (>= 90%
 1 -> N).  On a CPU host this exercises the *code path* on virtual devices
 (``--xla_force_host_platform_device_count``), the idiomatic stand-in for a
-pod (SURVEY §4b); on real TPU slices the same script measures true ICI
-scaling.
+multi-device host (SURVEY §4b); on a host with several GPUs the same
+script measures real scaling over NVLink.
 
 Usage::
 
     python benchmarks/scaling.py [--base-lat=256] [--base-lon=512]
-                                 [--steps=4] [--devices=1,2,4,8]
+                                 [--steps=4] [--devices=1,2,4]
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ def main():
     ap.add_argument("--base-lon", type=int, default=512)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--nlev", type=int, default=4)
-    ap.add_argument("--devices", default="1,2,4,8")
+    ap.add_argument("--devices", default="1,2,4")
     ap.add_argument("--virtual-devices", type=int, default=None,
                     help="run on N virtual CPU devices instead of the real "
                          "backend — the structural (code-path) curve of "

@@ -1,4 +1,4 @@
-"""Model-coupling skeleton — the ``dummy_model`` equivalent, TPU-native.
+"""Model-coupling skeleton — the ``dummy_model`` equivalent.
 
 The reference ships a Fortran fake model (``generic/dummy_model.f90:24-56``
 with the field registry ``generic/get_all_fields_mod.f90:6-21``) to

@@ -30,7 +30,7 @@ import jax.numpy as jnp
 from .core.grid import Grid
 from .core.params import Params
 from .core.state import TriggerState
-from .models.pipeline import TriggerPipeline
+from .models.pipeline import TriggerPipeline, use_pallas_default
 
 _PARAM_KEYS = ("target_plev", "thresh_wind", "thresh_winddir",
                "thresh_windch", "thresh_thc", "target_time", "timestep",
@@ -165,10 +165,8 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     wd = kwargs.pop("wd", None)
     thc = kwargs.pop("thc", None)
     meta = kwargs.pop("meta", None)
-    # None = auto: the fused Pallas kernels are the production path on TPU
-    # (~1.6x the XLA path, bench.py); pure XLA elsewhere.  Explicit
-    # True/False forces (False is also the pallas_interpret-free CPU path
-    # the tests golden against).
+    # None = auto (models.pipeline.use_pallas_default): the coastal-band
+    # ring kernel on a GPU, pure XLA elsewhere.  True/False forces.
     use_pallas = kwargs.pop("use_pallas", None)
     # In a MULTI-PROCESS launch (jax.process_count() > 1) the call always
     # runs the decomposed multi-host pipeline over all processes' devices
@@ -213,7 +211,7 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
 
     import jax
     if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+        use_pallas = use_pallas_default()
     lon_a = np.asarray(lon, np.float32)
     lat_a = np.asarray(lat, np.float32)
     grid_key = (lon_a.tobytes(), lat_a.tobytes())

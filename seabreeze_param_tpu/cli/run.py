@@ -157,7 +157,7 @@ def main(config, progress=sys.stdout, ckpt_dir=None, save_every=1,
 
 
 HELP = """
-Batch driver for the TPU sea-breeze trigger pipeline.
+Batch driver for the sea-breeze trigger pipeline.
 
 Usage:
     python -m seabreeze_param_tpu.cli.run --option=value

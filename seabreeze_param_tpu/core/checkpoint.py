@@ -20,8 +20,20 @@ import numpy as np
 from .state import TriggerState
 
 
+def _ocp():
+    """orbax.checkpoint, or an error naming the optional extra it ships in
+    (checkpointing is off the main path: only ``--ckpt_dir`` needs it)."""
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError:
+        raise ImportError(
+            "checkpoint/resume needs orbax-checkpoint: install the 'ckpt' "
+            "extra (pip install 'seabreeze-param-tpu[ckpt]')") from None
+    return ocp
+
+
 def _manager(directory: str, max_to_keep: int = 3):
-    import orbax.checkpoint as ocp
+    ocp = _ocp()
     return ocp.CheckpointManager(
         os.path.abspath(os.path.expanduser(directory)),
         options=ocp.CheckpointManagerOptions(max_to_keep=max_to_keep,
@@ -36,7 +48,7 @@ def save_state(directory: str, state: TriggerState, *, extra: dict = None,
     ``wait=False``: the per-call manager's close() waits for the write
     (kept for signature stability; see save_state_sharded's note).
     """
-    import orbax.checkpoint as ocp
+    ocp = _ocp()
     step = int(np.asarray(state.tt))
     payload = {"state": dict(tt=np.asarray(state.tt),
                              thc=np.asarray(state.thc),
@@ -59,7 +71,7 @@ def restore_state(directory: str, step: int | None = None):
     run fresh with ``TriggerState.zeros`` exactly as the reference driver
     does (``test_run.py:13-17``).
     """
-    import orbax.checkpoint as ocp
+    ocp = _ocp()
     mgr = _manager(directory)
     try:
         step = mgr.latest_step() if step is None else step
@@ -87,7 +99,7 @@ def save_state_sharded(directory: str, state: TriggerState, *,
     Synchronous: returns after the write completes (the per-call manager
     must be closed, and close() waits — a truly async variant would need a
     long-lived CheckpointManager owned by the caller)."""
-    import orbax.checkpoint as ocp
+    ocp = _ocp()
     step = int(np.asarray(state.tt))
     payload = {"state": dict(tt=state.tt, thc=state.thc,
                              windspeed=state.windspeed,
@@ -106,7 +118,7 @@ def restore_state_sharded(directory: str, like: TriggerState,
     each process reads only its shards.  Returns None when no checkpoint
     exists."""
     import jax
-    import orbax.checkpoint as ocp
+    ocp = _ocp()
 
     def absify(x):
         if hasattr(x, "sharding"):
@@ -132,7 +144,7 @@ def restore_state_sharded(directory: str, like: TriggerState,
 
 def latest_step(directory: str):
     """The resume point, or None when the directory has no checkpoints."""
-    import orbax.checkpoint as ocp  # noqa: F401  (validates availability)
+    _ocp()  # validates availability
     mgr = _manager(directory)
     try:
         return mgr.latest_step()

@@ -12,7 +12,7 @@ field's rank, units, and role, plus allocators.  It is the single source of
 truth for the coupling layer (:mod:`seabreeze_param_tpu.coupling`), the
 dummy-model example, the IO metadata writer, and the synthetic worlds used
 by tests and benchmarks.  Halo-padded duplicates are *not* part of the
-registry — on TPU halos are materialized transiently by
+registry — halos are materialized transiently by
 ``parallel.halo.halo_pad`` inside the step, not carried in the field set.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 # Reference dummy grid constants (generic/get_all_fields_mod.f90:9-11).
 NX = 128               # longitudes
 NY = 96                # latitudes
-NZ = 56                # model levels (the TPU pipeline consumes p-levels)
+NZ = 56                # model levels (the pipeline consumes p-levels)
 HALO_SIZE = 4          # reference halo width (transient here, see docstring)
 TIMESTEP_H = 24.0 / 60.0   # 24-minute coupling step
 
@@ -45,7 +45,7 @@ class FieldSpec:
 
 
 #: The canonical field set (generic/get_all_fields_mod.f90:12-20), in the
-#: TPU layout convention (lev, lat, lon) / (lat, lon) — C-order leading
+#: layout convention (lev, lat, lon) / (lat, lon) — C-order leading
 #: batch axes, no Fortran transposes (utils.layout handles the boundary).
 REGISTRY: tuple = (
     FieldSpec("lon", ("lon",), "degrees_east", "coord", "longitudes"),

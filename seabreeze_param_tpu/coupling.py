@@ -1,4 +1,4 @@
-"""In-model coupling API — the UM-variant contract, TPU-native.
+"""In-model coupling API — the UM-variant contract.
 
 The reference's UM vn10.7 integration (``UM/vn10.7/sea_breeze_diag.F90``)
 is how a *host climate model* calls the trigger from inside its physics
@@ -13,8 +13,8 @@ suite, with a different contract than the batch python_wrapper:
     (``UM/...F90:102, 196-202``);
   * DrHook enter/exit tracing around the routine (``UM/...F90:172, 324``);
   * OpenMP chunking via ``compute_chunk_size`` (``UM/...F90:188-192``) —
-    on TPU this concern disappears into XLA/Pallas tiling, so there is no
-    API surface for it here (SURVEY §2 native-checklist item 6).
+    here this concern disappears into XLA/Pallas tiling, so there is no
+    API surface for it (SURVEY §2 native-checklist item 6).
 
 :class:`CoupledTrigger` provides that contract on top of the same fused
 ops the batch pipeline uses, so a host model (or the ``examples/
@@ -87,8 +87,7 @@ class CoupledTrigger:
                               exact_lon=self.params.exact_lon_indexing)
         with self._tracer().hook("coupling:get_dist"):
             return coast_distance(coast, land_frac, self.grid,
-                                  self.params.maxdist,
-                                  use_pallas=self.use_pallas)
+                                  self.params.maxdist)
 
     # ------------------------------------------------------------------
     def physics(self, state: TriggerState, p, u, v, theta, z, sigma, mask):

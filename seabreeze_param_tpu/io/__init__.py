@@ -1,6 +1,6 @@
 """IO layer: config parsing, netCDF access, static metadata, input reading.
 
-TPU-native re-design of the reference's L3 config/IO layer
+Re-design of the reference's L3 config/IO layer
 (``python_wrapper/seabreezediag/configdir.py`` + ``read_nc``,
 ``__init__.py:53-89``) without the netCDF4 dependency (see ``netcdf.py``).
 """

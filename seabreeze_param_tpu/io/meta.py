@@ -112,7 +112,9 @@ class Meta:
         mode = "a" if os.path.isfile(fname) else "w"
         meta = VAR_METADATA[varname]
         with Dataset(fname, mode) as f:
-            for dim in ("lat", "lon", "time"):
+            # the record (time) dimension comes first: classic netCDF
+            # allows only the first dimension to be unlimited
+            for dim in ("time", "lat", "lon"):
                 try:
                     size = None if dim == "time" else len(getattr(self, dim))
                     f.createDimension(dim, size)

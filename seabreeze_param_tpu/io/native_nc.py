@@ -145,10 +145,11 @@ class NativeVar:
         return out
 
     def __getitem__(self, key):
-        if not self.is_record or key == slice(None) or key is Ellipsis:
+        whole = isinstance(key, slice) and key == slice(None) \
+            or key is Ellipsis
+        if whole or not self.is_record:
             data = self.read()
-            return data if (key == slice(None) or key is Ellipsis
-                            or not self.is_record) else data[key]
+            return data if whole else data[key]
         if isinstance(key, (int, np.integer)):
             i = int(key)
             if i < 0:

@@ -1,15 +1,15 @@
 """Minimal self-contained netCDF layer (no ``netCDF4`` dependency).
 
 The reference does all IO through the netCDF4 package
-(``configdir.py:13``, ``__init__.py:71``).  That package is not available
-here, so this module provides the subset the framework needs on top of
-libraries that are:
+(``configdir.py:13``, ``__init__.py:71``).  This module provides the subset
+the framework needs on top of NumPy and SciPy alone:
 
-  * **read**: netCDF-4 files *are* HDF5 files — read via ``h5py``; classic
-    netCDF-3 files fall back to ``scipy.io.netcdf_file``;
-  * **write/append**: ``h5py`` datasets with the netCDF-4 dimension-scale
-    conventions (``_Netcdf4Dimid``/``DIMENSION_LIST`` via the h5py ``dims``
-    API), so standard netCDF tooling reads the outputs;
+  * **read**: classic netCDF (CDF-1/2/5) through the native mmap reader
+    (``io.native_nc``) or ``scipy.io.netcdf_file``; netCDF-4 files *are*
+    HDF5 files, recognised by their signature and read through ``h5py``,
+    which only such inputs need;
+  * **write/append**: classic netCDF with 64-bit offsets (CDF-2) through
+    ``scipy.io.netcdf_file``, which every netCDF tool reads;
   * **calendar**: ``date2num``/``num2date`` for "<unit> since <epoch>"
     time axes (standard calendar), as used by the reference
     (``configdir.py:162,168``; ``__init__.py:85-86``).
@@ -91,12 +91,12 @@ class Variable:
 
     @property
     def dtype(self):
+        if self._backend == "scipy":
+            return self._raw.data.dtype.newbyteorder("=")
         return np.dtype(self._raw.dtype)
 
     @property
     def dimensions(self):
-        if self._backend == "native":
-            return self._raw.dimensions
         if self._backend == "h5":
             dims = []
             for i, dim in enumerate(self._raw.dims):
@@ -134,20 +134,20 @@ class Variable:
             return val.decode()
         return val
 
+    def _writable(self):
+        if self._backend != "scipy" or self._ds.mode == "r":
+            raise OSError(f"{self._ds.filename}: opened read-only")
+
     def setncattr(self, key, value):
-        if self._backend == "h5":
-            self._raw.attrs[key] = value
-        elif self._backend == "native":
-            raise OSError("native netCDF backend is read-only")
-        else:
-            setattr(self._raw, key, value)
+        self._writable()
+        setattr(self._raw, key, value)
 
     __setattr__ = object.__setattr__  # attrs on the handle stay Python-side
 
     def __getitem__(self, key):
         data = self._raw[key]
         if self._backend == "scipy":
-            data = np.array(data)  # detach from the mmap
+            data = np.array(data)  # detach from the file's buffer
         fill = None
         for attr in ("missing_value", "_FillValue"):
             try:
@@ -163,34 +163,60 @@ class Variable:
         return data
 
     def __setitem__(self, key, value):
-        if self._backend == "native":
-            raise OSError("native netCDF backend is read-only")
-        if self._backend == "scipy":
-            self._raw[key] = value
-            return
-        value = np.asarray(value)
-        if key == slice(None):
-            # grow unlimited first axis to fit (netCDF append semantics)
-            if self._raw.maxshape[0] is None and \
-                    value.shape and value.shape[0] != self._raw.shape[0]:
-                self._raw.resize(value.shape[0], axis=0)
-        self._raw[key] = value
+        """Writes; assigning ``[:]`` to a record variable grows the
+        unlimited axis to fit (netCDF append semantics)."""
+        self._writable()
+        self._raw[key] = np.asarray(value, self.dtype)
 
     def __len__(self):
         return self.shape[0]
 
 
+_HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
+
+#: createVariable type codes (the netCDF4 package's) -> classic dtypes
+_DTYPES = {"f": np.float32, "d": np.float64, "i": np.int32, "h": np.int16,
+           "b": np.int8}
+
+
+def is_hdf5(path) -> bool:
+    """True for a netCDF-4 (HDF5) file, judged by its signature."""
+    with open(path, "rb") as f:
+        return f.read(len(_HDF5_SIGNATURE)) == _HDF5_SIGNATURE
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError:
+        raise ImportError(
+            "reading netCDF-4 (HDF5) input needs the h5py package; install "
+            "h5py or convert the file to classic netCDF "
+            "(nccopy -k 64-bit-offset)") from None
+    return h5py
+
+
 class Dataset:
     """netCDF dataset: ``Dataset(path)`` to read, ``mode='w'``/``'a'`` to
-    write netCDF-4 (HDF5 + dimension scales) via h5py."""
+    write or append classic netCDF (CDF-2)."""
 
     def __init__(self, filename, mode="r"):
-        import h5py
         self.filename = os.path.expanduser(str(filename))
         self.mode = mode
         self._scipy = None
         self._native = None
-        if mode == "r" and not h5py.is_hdf5(self.filename):
+        self._h5 = None
+        if mode not in ("r", "w", "a"):
+            raise ValueError(f"mode must be 'r', 'w' or 'a', got {mode!r}")
+        if mode != "w" and is_hdf5(self.filename):
+            if mode == "a":
+                raise OSError(f"{self.filename}: appending to netCDF-4 "
+                              f"(HDF5) files is not supported; outputs are "
+                              f"classic netCDF")
+            self._h5 = _h5py().File(self.filename, "r")
+            return
+        from scipy.io import netcdf_file
+        if mode == "r":
             # classic netCDF: prefer the native mmap reader
             # (native/ncreader.cc — GIL-free reads, prefetch-friendly),
             # fall back to scipy where no toolchain exists.
@@ -201,20 +227,18 @@ class Dataset:
                 except IOError:
                     self._native = None
             if self._native is None:
-                from scipy.io import netcdf_file
                 self._scipy = netcdf_file(self.filename, "r", mmap=False)
-            self._h5 = None
         else:
-            self._h5 = h5py.File(self.filename, mode)
-        self._dims = {}
+            self._scipy = netcdf_file(self.filename, mode, mmap=False,
+                                      version=2)
 
     # -- reference API slice ------------------------------------------
     @property
     def variables(self):
         out = {}
         if self._h5 is not None:
+            h5py = _h5py()
             for name, node in self._h5.items():
-                import h5py
                 if isinstance(node, h5py.Dataset):
                     out[name] = Variable(self, name, node, "h5")
         elif self._native is not None:
@@ -228,12 +252,8 @@ class Dataset:
     @property
     def dimensions(self):
         if self._h5 is not None:
-            dims = {}
-            for name, node in self._h5.items():
-                if node.attrs.get("CLASS") == b"DIMENSION_SCALE":
-                    dims[name] = node.shape[0]
-            dims.update(self._dims)
-            return dims
+            return {name: node.shape[0] for name, node in self._h5.items()
+                    if node.attrs.get("CLASS") == b"DIMENSION_SCALE"}
         if self._native is not None:
             import ctypes
             from . import native_nc
@@ -248,49 +268,25 @@ class Dataset:
         return dict(self._scipy.dimensions)
 
     def createDimension(self, name, size=None):
-        if name in self.dimensions:
+        if self._scipy is None or self.mode == "r":
+            raise OSError(f"{self.filename}: opened read-only")
+        if name in self._scipy.dimensions:
             raise RuntimeError(f"dimension {name!r} exists")
-        self._dims[name] = size
+        self._scipy.createDimension(name, size)
 
     def createVariable(self, name, datatype, dimensions=()):
-        if self._h5 is None:
-            raise OSError("dataset opened read-only (netCDF-3 backend)")
-        if name in self._h5:
+        if self._scipy is None or self.mode == "r":
+            raise OSError(f"{self.filename}: opened read-only")
+        if name in self._scipy.variables:
             raise RuntimeError(f"variable {name!r} exists")
-        dt = {"f": np.float32, "d": np.float64, "i": np.int32,
-              "l": np.int64}.get(datatype, datatype)
-        shape, maxshape = [], []
-        for dim in dimensions:
-            size = self.dimensions.get(dim)
-            shape.append(0 if size is None else size)
-            maxshape.append(None if size is None else size)
-        ds = self._h5.create_dataset(name, shape=tuple(shape),
-                                     maxshape=tuple(maxshape), dtype=dt)
-        # attach netCDF-4 dimension scales: a 1-D variable named like its
-        # own dimension IS the coordinate scale
-        for i, dim in enumerate(dimensions):
-            if dim == name:
-                ds.make_scale(dim)
-                continue
-            if dim not in self._h5:
-                size = self.dimensions.get(dim)
-                scale = self._h5.create_dataset(
-                    dim, shape=(0 if size is None else size,),
-                    maxshape=(None if size is None else size,),
-                    dtype=np.float64)
-                scale.make_scale(dim)
-            elif not self._h5[dim].attrs.get("CLASS"):
-                self._h5[dim].make_scale(dim)
-            ds.dims[i].attach_scale(self._h5[dim])
-        return Variable(self, name, ds, "h5")
+        var = self._scipy.createVariable(
+            name, np.dtype(_DTYPES.get(datatype, datatype)), tuple(dimensions))
+        return Variable(self, name, var, "scipy")
 
     def close(self):
-        if self._h5 is not None:
-            self._h5.close()
-        if self._scipy is not None:
-            self._scipy.close()
-        if self._native is not None:
-            self._native.close()
+        for handle in (self._h5, self._scipy, self._native):
+            if handle is not None:
+                handle.close()
 
     def __enter__(self):
         return self

@@ -1,6 +1,6 @@
 """The full trigger pipeline: mask -> coastline -> distance -> trigger.
 
-This is the TPU-native equivalent of the reference's per-timestep inner loop
+This is the JAX equivalent of the reference's per-timestep inner loop
 (``python_wrapper/seabreezediag/__init__.py:219-245``): per step, rebuild the
 coastline and coast-distance from the (moving) sea-ice field, run the trigger
 kernel, and thread the persistent state forward.  The whole loop is one
@@ -36,6 +36,13 @@ from ..ops.trigger import trigger_step
 TRACE_STATS = {"traces": 0}
 
 
+def use_pallas_default() -> bool:
+    """Whether the ring search runs as the coastal-band kernel by default:
+    on a GPU, where it compiles and beats the dense XLA form (PERF.md);
+    pure XLA elsewhere."""
+    return jax.default_backend() == "gpu"
+
+
 @dataclass(frozen=True)
 class TriggerPipeline:
     """Bound pipeline over static fields.
@@ -51,15 +58,12 @@ class TriggerPipeline:
     # Optional explicit ring-search bound (see ops.ring_search.
     # required_ring_radius_host); None = the provable global-grid bound.
     ring_nn: int | None = None
-    # Distance-transform implementation ('auto' | 'xla' | 'hybrid' |
-    # 'pallas'); 'auto' resolves per backend (ops.distance.resolve_impl).
-    distance_impl: str = "auto"
     # Pass-1 lon form: 'taps' (exact reference parity) or 'nearest' (the
     # O(log k) uniform-grid form, allclose parity — see
     # ops.distance.pass1_extrema_nearest).
     distance_lon_form: str = "taps"
-    # Run every Pallas kernel in interpret mode (CPU testing of the TPU
-    # production path — the fake-backend pattern of SURVEY §4b).
+    # Run the ring kernel in interpret mode: tests set it to exercise the
+    # use_pallas path on the CPU.
     pallas_interpret: bool = False
 
     @property
@@ -82,9 +86,6 @@ class TriggerPipeline:
         """Coastline + signed coast distance for one (lsm, sea-ice) pair."""
         coast = get_edges(lsm, ci, exact_lon=self.params.exact_lon_indexing)
         return coast_distance(coast, lsm, self.grid, self.params.maxdist,
-                              use_pallas=self.use_pallas,
-                              impl=self.distance_impl,
-                              interpret=self.pallas_interpret,
                               lon_form=self.distance_lon_form)
 
     def step(self, state: TriggerState, theta, u, v, lsm, z, std, pres,
@@ -125,93 +126,25 @@ class TriggerPipeline:
         if key in cache:
             return cache[key]
 
-        if self.use_pallas:
-            scan_all = self._make_stacked_scan(has_ci)
-        else:
-            def scan_all(state, xs, lsm, z, std, pres, cdist0):
-                TRACE_STATS["traces"] += 1
+        def scan_all(state, xs, lsm, z, std, pres, cdist0):
+            TRACE_STATS["traces"] += 1
 
-                def scan_fn(carry, x):
-                    if has_ci:
-                        th, uu, vv, ci = x
-                        return self.step(carry, th, uu, vv, lsm, z, std,
-                                         pres, ci=ci)
-                    th, uu, vv = x
-                    return trigger_step(
-                        carry, th, uu, vv, cdist0, z, std, pres, self.params,
-                        self.nn_max, use_pallas=self.use_pallas,
-                        pallas_interpret=self.pallas_interpret)
+            def scan_fn(carry, x):
+                if has_ci:
+                    th, uu, vv, ci = x
+                    return self.step(carry, th, uu, vv, lsm, z, std, pres,
+                                     ci=ci)
+                th, uu, vv = x
+                return trigger_step(
+                    carry, th, uu, vv, cdist0, z, std, pres, self.params,
+                    self.nn_max, use_pallas=self.use_pallas,
+                    pallas_interpret=self.pallas_interpret)
 
-                return jax.lax.scan(scan_fn, state, xs)
+            return jax.lax.scan(scan_fn, state, xs)
 
         runner = jax.jit(scan_all, donate_argnums=(0,)) if jit else scan_all
         cache[key] = runner
         return runner
-
-    def _make_stacked_scan(self, has_ci: bool):
-        """Production Pallas scan: compacted launch + in-place stacked
-        outputs.
-
-        Two structural wins over the plain ys-stacked scan:
-
-        * the fused ring/trigger kernel writes each step's three output
-          fields directly into slot t of carried (T, ·, ·) buffers
-          (``input_output_aliases`` + scalar-prefetch block index) — no
-          per-step dynamic-update-slice copy of the Pallas outputs;
-        * only the EVER-coastal tiles launch (1-D dynamic grid over a
-          compacted tile list): on a global 0.1-deg grid ~95% of cells are
-          open ocean/continental interior, and the dense launch paid a
-          measured 1.14 us/tile of fixed overhead there (0.96 ms/step over
-          841 tiles).
-
-        Correctness of skipping relies on two invariants, both enforced
-        here: the launch set is MONOTONE over the scan (a tile once
-        coastal stays launched even after sea ice moves the band away —
-        its state may have been updated and must keep being managed), and
-        the buffers are PRE-FILLED with the never-coastal default
-        (MISSING-masked sb_con, passthrough initial wind — ``take_wind``
-        requires a coastal cell, so never-coastal cells provably never
-        change state).  ``t0`` is a plain XLA fusion output, so its
-        ys-stack write fuses and stays in the scan."""
-        from ..ops.pallas.ring_kernel import CompactStackedScan
-        from ..ops.trigger import trigger_step_stacked
-
-        def scan_all(state, xs, lsm, z, std, pres, cdist0):
-            TRACE_STATS["traces"] += 1
-            T = xs[0].shape[0]
-            nlat, nlon = xs[0].shape[1], xs[0].shape[2]
-            css = CompactStackedScan(nlat, nlon, self.nn_max,
-                                     self.params.maxdist,
-                                     self.params.skip_last_lat_row)
-            # Pre-fill = the never-coastal default (the same bytes a
-            # zeros-init would have written — the default is free).
-            sb_b, ws_b, wd_b = css.init_buffers(T, state.windspeed,
-                                                state.winddir)
-
-            def scan_fn(carry, x):
-                st, idx, ever, sb_b, ws_b, wd_b = carry
-                if has_ci:
-                    th, uu, vv, ci = x
-                    cdist = self.distance_field(lsm, ci)
-                else:
-                    th, uu, vv = x
-                    cdist = cdist0
-                ever, ids, n = css.launch(ever, cdist)
-                st, out_t0, sb_b, ws_b, wd_b = trigger_step_stacked(
-                    st, th, uu, vv, cdist, z, std, pres, self.params,
-                    self.nn_max, idx, sb_b, ws_b, wd_b, ids, n,
-                    pallas_interpret=self.pallas_interpret)
-                return (st, idx + 1, ever, sb_b, ws_b, wd_b), out_t0
-
-            carry0 = (state, jnp.int32(0), css.ever0(), sb_b, ws_b, wd_b)
-            (final, _, _, sb_b, ws_b, wd_b), t0s = jax.lax.scan(
-                scan_fn, carry0, xs)
-            outs = {"sb_con": sb_b[:, :nlat, :nlon], "t0": t0s,
-                    "windspeed": ws_b[:, :nlat, :nlon],
-                    "winddir": wd_b[:, :nlat, :nlon]}
-            return final, outs
-
-        return scan_all
 
     def run(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std, pres,
             ci_t=None, *, jit: bool = True):

@@ -1,10 +1,10 @@
 """Coastline extraction: land+ice mask and the binary Sobel edge filter.
 
-TPU-native re-design of ``get_edges`` (reference:
+Vectorised re-design of ``get_edges`` (reference:
 ``python_wrapper/seabreezediag/sobel.f90:19-89``).  The Fortran is a per-point
 3x3 loop with boundary index arithmetic; here the whole operator is a handful
 of shifted-slice adds over a boundary-resolved padded field — XLA fuses it
-into a single VPU pass, and under ``shard_map`` the pad is produced by a
+into a single elementwise pass, and under ``shard_map`` the pad is produced by a
 1-wide halo exchange instead of local gathers (``parallel.halo``).
 
 Semantics (python-wrapper variant, the authoritative one):

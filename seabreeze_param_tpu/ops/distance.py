@@ -1,13 +1,13 @@
 """Signed distance-to-coast transform.
 
-TPU-native restructuring of ``get_dist``
+Gather-form restructuring of ``get_dist``
 (``python_wrapper/seabreezediag/sobel.f90:91-193``).
 
 The reference is a *scatter*: every coastal point walks a (2k+1)^2
 neighborhood and scatter-mins a haversine distance into each neighbor
 (sobel.f90:154-190), with k = int(maxdist / dx) cells where dx is the
 diagonal cell size at ~70 deg latitude (sobel.f90:129-137).  Scatter-min with
-data-dependent writes is TPU-hostile.  Two observations make a clean
+data-dependent writes does not vectorise.  Two observations make a clean
 gather-form possible:
 
 1. **Scatter/gather duality.**  The neighborhood is symmetric in index
@@ -33,10 +33,9 @@ coordinate vectors (works for non-uniform grids too; dlam uses the
 (-180, 180] re-branching of sobel.f90:165-174, whose 360-degree jumps are
 invisible to sin^2).
 
-The jnp implementation below runs a fori_loop over the (2k+1)^2 offsets with
-one dynamic slice + fused multiply-add-min per step.  The Pallas kernel in
-``ops/pallas/distance_kernel.py`` does the same math from VMEM-resident
-tiles in a single HBM pass.
+The implementation below is separable: pass 1 takes a masked sliding min
+of the lon table along each row, pass 2 a min of sdphi2 + po * (pass-1
+value) along each column — O(2k+1) sliced passes instead of O((2k+1)^2).
 
 Final-pass quirk: any cell whose |cdist| ends above 2*maxdist is reset to
 the 12000 km sentinel.  The reference applies this *inside* the scatter loop
@@ -159,15 +158,10 @@ def pass1_extrema_nearest(cpad, k: int, half_dlam: float):
     :func:`pass1_extrema` remains the exact-parity default).  Returns
     (Mmin, None) with the same contract (BIG on empty windows).
 
-    MEASURED RESULT (TPU v5e, r4): although this form is ~3x fewer vector
-    ops per cell (~60 vs ~186 at k=15), it LOSES on TPU — 2.15 ms vs
-    1.44 ms at 0.1 deg, 0.20 vs 0.11 at 0.25 deg — because the doubling
-    rounds are data-dependent and lower to ~10 sequential full-array HBM
-    sweeps, while XLA fuses all 2(2k+1) taps into ONE sweep (the taps
-    re-read the same cache-resident lines).  Asymptotics lost to fusion;
-    kept as the documented alternative (and as the right shape for
-    backends where the tap unroll blows compile time), with ``taps`` the
-    default everywhere.
+    It trades the 2k+1 taps for ~log2(k) data-dependent doubling rounds,
+    each a full-array sweep, while the tapped form fuses all taps into one
+    sweep; which is faster is a question for the device's trace.  The
+    tapped :func:`pass1_extrema` is the default everywhere.
     """
     h2k = cpad.shape[0]
     w2k = cpad.shape[1]
@@ -279,8 +273,6 @@ def pass2_min(Mmin, Mmax, sdphi2, po, k: int, *,
 
 def min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2, k: int,
                                     *, unroll: bool | None = None,
-                                    impl: str = "xla",
-                                    interpret: bool = False,
                                     half_dlam=None):
     """Core gather-min over a k-padded coast block — separable two-pass form.
 
@@ -307,33 +299,18 @@ def min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2, k: int,
     sdphi2 = BIG and never win.
     """
     # The taps are unrolled as static slices when the window is small (the
-    # production regime: k=6 at 0.25 deg, k=15 at 0.1 deg), which lets XLA
-    # fuse each pass into a single HBM sweep — measured ~1.4x over the
-    # fori_loop form on TPU v5e.  Very large k falls back to fori_loop to
-    # bound compile time.  ``unroll`` pins the choice for tests (both
-    # branches are goldened by tests/test_ops_golden.py so they cannot
+    # production regime: k=6 at 0.25 deg, k=15 at 0.1 deg), so XLA can fuse
+    # each pass into one sweep over the field; very large k falls back to
+    # fori_loop to bound compile time.  ``unroll`` pins the choice for tests
+    # (both branches are goldened by tests/test_ops_golden.py so they cannot
     # silently diverge).
-    #
-    # ``impl='hybrid'`` (the TPU production path, see ``coast_distance``)
-    # keeps pass 1 in XLA — its taps slice along LANES, where Pallas would
-    # pay a cross-lane rotate per tap — but runs pass 2 as a Pallas kernel:
-    # pass 2 taps slice along SUBLANES only, so the whole (th+2k, tw) strip
-    # sits in VMEM and all 2k+1 taps run on-chip in one HBM pass.  This also
-    # materializes the pass-1 extrema exactly once; XLA alone rematerializes
-    # them inside the pass-2 fusion (measured 5.7 ms vs 3.2 ms for the
-    # passes run separately at 0.1 deg, k=15 — and the hybrid's pass 2
-    # itself drops 2.8 ms -> ~0.3 ms).
     # ``half_dlam`` (uniform-lon grids only, see uniform_half_dlam) opts
-    # pass 1 into the O(log k) nearest/farthest form — allclose to the
-    # tapped form, not bit-exact; None = exact taps.
+    # pass 1 into the O(log k) nearest form — allclose to the tapped form,
+    # not bit-exact; None = exact taps.
     if half_dlam is not None:
         Mmin, Mmax = pass1_extrema_nearest(cpad, k, half_dlam)
     else:
         Mmin, Mmax = pass1_extrema(cpad, sdlam2, k, unroll=unroll)
-    if impl == "hybrid":
-        from .pallas.distance_kernel import pass2_min_pallas
-        return pass2_min_pallas(Mmin, Mmax, sdphi2, po, k,
-                                interpret=interpret)
     return pass2_min(Mmin, Mmax, sdphi2, po, k, unroll=unroll)
 
 
@@ -375,45 +352,17 @@ def effective_radius(grid: Grid, maxdist: float, k: int | None = None) -> int:
     return max(0, min(k, max(grid.nlat, grid.nlon)))
 
 
-def resolve_impl(impl: str) -> str:
-    """Resolve ``impl='auto'`` by backend: the XLA-pass1 + Pallas-pass2
-    hybrid on TPU, pure XLA elsewhere (trace-time Python — the backend is
-    static)."""
-    if impl != "auto":
-        return impl
-    return "hybrid" if jax.default_backend() == "tpu" else "xla"
-
-
 def coast_distance(coast, lsm, grid: Grid, maxdist: float = 180.0,
-                   *, k: int | None = None, use_pallas: bool = False,
-                   impl: str = "auto", interpret: bool = False,
-                   lon_form: str = "taps"):
+                   *, k: int | None = None, lon_form: str = "taps"):
     """Full ``get_dist`` equivalent: signed km distance to the nearest
     coastline cell, positive over land, negative over sea, 12000 km sentinel
     beyond 2*maxdist.
 
-    ``impl`` selects the gather-min implementation:
-
-    * ``'auto'`` (default) — ``'hybrid'`` on TPU, ``'xla'`` elsewhere.
-    * ``'hybrid'`` — XLA pass 1 + Pallas pass 2 (see
-      ``min_haversine_param_from_padded``): measured on TPU v5e 1.3x over
-      pure XLA at 0.25 deg and ~6x at 0.1 deg (k=15), where the XLA fusion
-      both rematerializes pass 1 and pays 2(2k+1) HBM sweeps in pass 2.
-    * ``'xla'`` — the pure separable two-pass form (any backend).
-    * ``'pallas'`` — the fully fused tile kernel; loses to the hybrid
-      because its pass-1 taps slice along lanes (a cross-lane rotate per
-      tap in VMEM), which XLA instead folds into HBM read addressing —
-      measured r4 on v5e: 0.28 vs 0.11 ms at 0.25° and 4.17 vs 1.70 ms at
-      0.1° (the coast-sparsity tile skip does not recover the rotate
-      cost).
-
-    ``use_pallas`` — which routes the *ring* kernel to Pallas — does not
-    switch this op; the distance choice is independent and auto-resolved.
+    ``lon_form`` selects pass 1: ``'taps'`` (exact reference parity) or
+    ``'nearest'`` (see :func:`pass1_extrema_nearest`).
     """
     k_eff = effective_radius(grid, maxdist, k)
     tables = distance_tables(grid, k_eff)
-    del use_pallas
-    impl = resolve_impl(impl)
     half_dlam = None
     if lon_form == "nearest":
         half_dlam = uniform_half_dlam(grid, k_eff)
@@ -423,12 +372,6 @@ def coast_distance(coast, lsm, grid: Grid, maxdist: float = 180.0,
                 "k*dlam <= 180 deg (monotone sin^2 window)")
     elif lon_form != "taps":
         raise ValueError(lon_form)
-    if impl == "pallas":
-        from .pallas.distance_kernel import min_haversine_param_pallas
-        amin = min_haversine_param_pallas(coast, *tables, k_eff,
-                                          interpret=interpret)
-    else:
-        amin = min_haversine_param_from_padded(
-            pad_coast(coast, k_eff), *tables, k_eff, impl=impl,
-            interpret=interpret, half_dlam=half_dlam)
+    amin = min_haversine_param_from_padded(
+        pad_coast(coast, k_eff), *tables, k_eff, half_dlam=half_dlam)
     return finalize_distance(amin, lsm, maxdist)

@@ -68,11 +68,10 @@ def pad2d(field, pad_lat: int, pad_lon: int, *, exact_lon: bool = True):
     produced by ``parallel.halo.exchange`` plus this map applied only at the
     true global edges.
 
-    Built from static slices + one concat per axis — NOT ``jnp.take``: the
-    boundary maps are piecewise-contiguous, and TPU lowers a general gather
-    orders of magnitude slower than slice/concat (measured ~10x on the full
-    Sobel stage).  Index-for-index identical to gathering through
-    ``pad_indices``:
+    Built from static slices + one concat per axis rather than ``jnp.take``:
+    the boundary maps are piecewise-contiguous, so slices say the same thing
+    as a general gather and leave XLA nothing to index dynamically.
+    Index-for-index identical to gathering through ``pad_indices``:
 
       * clamped rows:   [row0] * p  ++  rows  ++  [row n-1] * p
       * quirky cols:    cols[n-p : n-1] ++ [col0]        (left pad)

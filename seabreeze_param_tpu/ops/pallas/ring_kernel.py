@@ -1,42 +1,26 @@
-"""Pallas TPU kernel: fused expanding-ring THC search.
+"""Pallas GPU kernel (Triton route): coastal-band expanding-ring THC search.
 
 The ring search (``ops.ring_search.ring_thc_from_padded``; reference
-data-dependent while loop ``seabreeze_diag_python.f90:187-221``) is the
-pipeline's dominant VPU consumer: NN incremental-window steps over three
-quantity channels.  Here each (tile_rows, tile_cols) tile (plus its NN-wide
-apron) is DMA'd into VMEM once; the horizontal/vertical running sums, all NN
-window updates, and the found-select all run on-chip — one HBM read of
-(t0, cdist) + one write of (n_thc) total.
+data-dependent while loop ``seabreeze_diag_python.f90:187-221``) runs densely
+in XLA: every ring radius nn = 1..NN updates three running-sum channels over
+the whole grid.  Only the coastal band |cdist| <= maxdist is ever searched
+(seabreeze_diag_python.f90:171), and most of its cells find both classes
+within a few rings.  Skipping blocks without a coastal cell and stopping once
+every coastal cell has latched are data-dependent, which XLA cannot express;
+this kernel does both.
 
-Structural optimizations over a straight port of the XLA form:
+Layout: a 2-D grid of independent (block_rows, block_cols) blocks.  A block
+loads its centre ``cdist``; with no coastal cell its ring loop runs zero
+times and it stores zeros.  Otherwise it loops over nn with an early exit
+once every coastal cell has found both classes.
 
-* **Coastal-band sparsity.**  The reference only searches cells with
-  |cdist| <= maxdist (seabreeze_diag_python.f90:171) — a thin band around
-  coastlines, typically a few percent of a global grid.  In the dense
-  kernels, tiles whose center block contains no such cell skip the DMA and
-  the whole NN loop; the PRODUCTION form (``ring_trigger_pallas_stacked``)
-  goes further and never launches them at all — a 1-D dynamic grid over a
-  scalar-prefetched ever-coastal tile list (841 -> ~200 launches at global
-  0.1 deg; the dense skip still cost a measured 1.14 us/tile).
-
-* **Three channels, not four.**  Window cells are always genuine grid values
-  (land + sea = 1), so the sea count is exactly (2nn+1)^2 - n_land in
-  float32 (integer-valued); only t0*land, land, t0*sea are summed.  See
-  ``ops.ring_search.ring_quantities``.
-
-* **In-place stacked outputs + state** (production form): each step's
-  output fields land directly in slot t of the scan's carried (T, ., .)
-  buffers and the wind state updates in place (``input_output_aliases``);
-  unlaunched tiles keep pre-filled defaults that provably equal what they
-  would compute (``CompactStackedScan``).
-
-* **Double-buffered strip DMA** (production form): the next launched
-  tile's (t0, cd) strips prefetch into the other scratch slot during the
-  current tile's ring loop (0.1 deg: 4.55 -> 4.48 ms/step).
-
-Grid: 2-D over (row, col) tiles (dense) or 1-D over the launch list
-(production); apron overlap requires ANY memory + manual DMA (regular
-BlockSpec tiling cannot overlap), as in ``distance_kernel``.
+Each ring's four edge sums are computed directly from shifted loads of the
+padded inputs (served from L1/L2), in exactly the addition order of the XLA
+form: the top/bottom rows are the horizontal running sum
+``q0 + q-1 + q+1 + q-2 + q+2 ...`` and the left/right columns the vertical
+one, and the window sum adds ``top, bot, left, right`` in that order, so the
+result is bit-identical to the XLA path (on an H100 too: Triton's and XLA's
+float32 division round alike there, see PERF.md).
 """
 from __future__ import annotations
 
@@ -45,889 +29,136 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 _SENTINEL = np.float32(12000.0)
-_MISSING = np.float32(2.0e20)
+
+#: Block shape and warp count, chosen on an H100 (PERF.md, "Where the time
+#: goes").
+BLOCK_ROWS = 16
+BLOCK_COLS = 64
+NUM_WARPS = 4
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def _default_tiles(NN: int, tile_rows, tile_cols):
-    """Tile defaults from TPU v5e sweeps of the fused trigger kernel
-    (benchmarks/sweep_ring.py).  Small tiles give the coastal-band skip
-    spatial resolution (the band is only ~5% of a global grid) and let the
-    per-tile early exit fire sooner; below ~16 rows the per-tile grid/DMA
-    overhead dominates.  (64, 128) won the r4 sweep at 0.25 deg (NN=10)
-    and stays the winner under the r5 compacted launch.  ``SBZ_RING_TILES``
-    (e.g. ``64x256``) overrides for experiments — read at trace time, so
-    only use it with a fresh process per value."""
-    if tile_rows is None and tile_cols is None:
-        import os
-        env = os.environ.get("SBZ_RING_TILES")
-        if env:
-            r, c = env.split("x")
-            return int(r), int(c)
-    tile_rows = 64 if tile_rows is None else tile_rows
-    tile_cols = 128 if tile_cols is None else tile_cols
-    return tile_rows, tile_cols
-
-
-def _kernel(t0_hbm, cd_hbm, cdc_ref, out_thc, t0s, cds, hp, vc, ws, lat,
-            done, sem, *, nn_max: int, th: int, tw: int, rows_dma: int,
-            cols_dma: int, maxdist: float):
-    # NOTE: the dense kernels deliberately do NOT double-buffer their strip
-    # DMAs (unlike the production ``_trigger_kernel_stacked``): here the
-    # coastal-skip branch avoids the strip fetch entirely, and an
-    # unconditional next-tile prefetch would reintroduce ~180 MB/step of
-    # skip-tile strip traffic at 0.1 deg — more than the hidden latency.
-    # The compacted production launch has no skip tiles, so prefetch wins
-    # there.
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+def _kernel(t0_ref, cd_ref, cdc_ref, out_ref, *, nn_max: int, br: int,
+            bc: int, maxdist: float):
     NN = int(nn_max)
+    r0 = pl.program_id(0) * br
+    c0 = pl.program_id(1) * bc
+    # The target cell's class and coastal predicate come from the UNPADDED
+    # centre: the quirky lon pad remaps the last column inside the padded
+    # copy, but the reference reads the target unremapped
+    # (seabreeze_diag_python.f90:171, 220).
+    cdc = plgpu.load(cdc_ref.at[pl.ds(r0, br), pl.ds(c0, bc)])
+    coastal = jnp.abs(cdc) <= jnp.float32(maxdist)
 
-    # Coastal-band predicate on the center block: tiles with no coastal
-    # target cell produce all-zero output without touching HBM again.
-    coastal_c = jnp.abs(cdc_ref[:]) <= jnp.float32(maxdist)
-    any_coastal = jnp.any(coastal_c)
+    def q(dr, dc):
+        """The three summands (t0*land, land, t0*sea) at offset (dr, dc)
+        from every target of the block (ops.ring_search.ring_quantities)."""
+        rows = pl.ds(r0 + NN + dr, br)
+        cols = pl.ds(c0 + NN + dc, bc)
+        t = plgpu.load(t0_ref.at[rows, cols])
+        land = (plgpu.load(cd_ref.at[rows, cols]) >= 0.0).astype(jnp.float32)
+        tl = t * land
+        return tl, land, t - tl
 
-    @pl.when(jnp.logical_not(any_coastal))
-    def _skip():
-        out_thc[:] = jnp.zeros((th, tw), jnp.float32)
+    def add(a, b):
+        return tuple(x + y for x, y in zip(a, b))
 
-    @pl.when(any_coastal)
-    def _compute():
-        # rows_dma/cols_dma: the tile + 2NN apron rounded up to the f32
-        # tiling quanta (8 sublanes, 128 lanes): Mosaic requires tile-aligned
-        # DMA slice shapes.  Extra rows/cols (zero/sentinel-padded in HBM)
-        # sit beyond every window slice of the real target cells, so they
-        # never enter a sum that is kept.
-        t0_dma = pltpu.make_async_copy(
-            t0_hbm.at[pl.ds(i * th, rows_dma), pl.ds(j * tw, cols_dma)],
-            t0s, sem.at[0])
-        cd_dma = pltpu.make_async_copy(
-            cd_hbm.at[pl.ds(i * th, rows_dma), pl.ds(j * tw, cols_dma)],
-            cds, sem.at[1])
-        t0_dma.start()
-        cd_dma.start()
-        t0_dma.wait()
-        cd_dma.wait()
+    def row_sum(dr, nn):
+        """Horizontal running sum of order nn on row offset dr."""
+        return lax.fori_loop(1, nn + 1,
+                             lambda d, acc: add(add(acc, q(dr, -d)), q(dr, d)),
+                             q(dr, 0))
 
-        # Quantity channels in VMEM (ops.ring_search.ring_quantities):
-        # 0 = t0*land, 1 = land, 2 = t0*sea (exact complement t0 - t0*land).
-        land = (cds[:] >= 0.0).astype(jnp.float32)       # (rows, cols)
-        tl = t0s[:] * land
-        tss = t0s[:] - tl
-        quants = (tl, land, tss)
-        # Running-sum state at order 0:
-        #   hp[c] : horizontal sums over all rows        (rows_dma, tw)
-        #   vc[c] : vertical sums over the center rows   (th, cols_dma)
-        #   ws[c] : window sums over the center block    (th, tw)
-        for c, q in ((0, tl), (1, land), (2, tss)):
-            hp[c] = q[:, NN:NN + tw]
-            vc[c] = q[NN:NN + th, :]
-            ws[c] = q[NN:NN + th, NN:NN + tw]
+    def col_sum(dc, nn):
+        """Vertical running sum of order nn-1 on column offset dc."""
+        return lax.fori_loop(1, nn,
+                             lambda d, acc: add(add(acc, q(-d, dc)), q(d, dc)),
+                             q(0, dc))
 
-        # lat[0..3] latch the per-class sums at each cell's first-found
-        # radius (one division at the very end, not two per nn); lat[4] is
-        # the found mask (as f32).  See ops.ring_search.
-        lat[0] = jnp.zeros((th, tw), jnp.float32)
-        lat[1] = jnp.ones((th, tw), jnp.float32)
-        lat[2] = jnp.zeros((th, tw), jnp.float32)
-        lat[3] = jnp.ones((th, tw), jnp.float32)
-        lat[4] = jnp.zeros((th, tw), jnp.float32)
-        done[0] = jnp.int32(0)
+    def pending(found):
+        return jnp.max(jnp.where(coastal & (found == 0.0), 1.0, 0.0)) > 0.0
 
-        for nn in range(1, NN + 1):
-            # Early exit: once every coastal cell in the tile has latched,
-            # the remaining ring expansions cannot change the (masked)
-            # output — skip them.  Typical coastal tiles finish in a few
-            # rings; only band-edge cells need the full k+2 bound.
-            @pl.when(done[0] == 0)
-            def _ring(nn=nn):
-                for c in range(3):
-                    q = quants[c]
-                    # widen the horizontal running sum to order nn
-                    hp[c] = (hp[c] + q[:, NN - nn:NN - nn + tw]
-                             + q[:, NN + nn:NN + nn + tw])
-                    top = hp[c, NN - nn:NN - nn + th, :]
-                    bot = hp[c, NN + nn:NN + nn + th, :]
-                    # vertical running sum is at order nn-1 (excl. new rows)
-                    left = vc[c, :, NN - nn:NN - nn + tw]
-                    right = vc[c, :, NN + nn:NN + nn + tw]
-                    ws[c] = ws[c] + top + bot + left + right
-                    # widen the vertical running sum for the next iteration
-                    vc[c] = (vc[c] + q[NN - nn:NN - nn + th, :]
-                             + q[NN + nn:NN + nn + th, :])
-                t_l, n_l, t_s = ws[0], ws[1], ws[2]
-                n_s = jnp.float32((2 * nn + 1) ** 2) - n_l    # exact
-                found = lat[4] > 0.0
-                ok = (n_l > 0.0) & (n_s > 0.0)
-                newly = ok & (~found)
-                # never-found cells take the last computed window (== the
-                # NN window when the tile never early-exits; early exit
-                # implies every *coastal* cell latched, and non-coastal
-                # outputs are masked to zero anyway)
-                last = newly | (~found & (nn == NN))
-                lat[0] = jnp.where(last, t_l, lat[0])
-                lat[1] = jnp.where(last, jnp.maximum(n_l, 1.0), lat[1])
-                lat[2] = jnp.where(last, t_s, lat[2])
-                lat[3] = jnp.where(last, jnp.maximum(n_s, 1.0), lat[3])
-                new_found = found | ok
-                lat[4] = new_found.astype(jnp.float32)
-                done[0] = jnp.all(new_found | ~coastal_c).astype(jnp.int32)
+    def cond(carry):
+        nn, _, _, found = carry
+        return (nn <= NN) & pending(found)
 
-        # mul comes from the UNPADDED center (cdc_ref): the quirky lon pad
-        # maps the last column onto column 0 inside the strip, but the
-        # reference takes the target's own class unremapped
-        # (seabreeze_diag_python.f90:220).
-        mul = jnp.where(cdc_ref[:] >= 0.0, jnp.float32(1.0),
-                        jnp.float32(-1.0))
-        n_thc = mul * (lat[0] / lat[1] - lat[2] / lat[3])
-        out_thc[:] = jnp.where(coastal_c, n_thc, jnp.float32(0.0))
+    def body(carry):
+        nn, win, (tl_, nl_, ts_, ns_), found = carry
+        parts = (row_sum(-nn, nn), row_sum(nn, nn), col_sum(-nn, nn),
+                 col_sum(nn, nn))
+        win = tuple((((w + a) + b) + c) + d
+                    for w, a, b, c, d in zip(win, *parts))
+        t_l, n_l, t_s = win
+        side = (2 * nn + 1).astype(jnp.float32)
+        n_s = side * side - n_l                      # exact (integers < 2^24)
+        ok = (n_l > 0.0) & (n_s > 0.0)
+        seen = found > 0.0
+        # never-found cells take the NN window (only reachable when the loop
+        # runs to NN; early exit means every coastal cell has latched)
+        last = (ok & ~seen) | (~seen & (nn == NN))
+        tl_ = jnp.where(last, t_l, tl_)
+        nl_ = jnp.where(last, jnp.maximum(n_l, 1.0), nl_)
+        ts_ = jnp.where(last, t_s, ts_)
+        ns_ = jnp.where(last, jnp.maximum(n_s, 1.0), ns_)
+        found = jnp.where(ok, 1.0, found)
+        return nn + 1, win, (tl_, nl_, ts_, ns_), found
+
+    zero = jnp.zeros((br, bc), jnp.float32)
+    one = jnp.ones((br, bc), jnp.float32)
+    carry = (jnp.int32(1), q(0, 0), (zero, one, zero, one), zero)
+    _, _, (tl_, nl_, ts_, ns_), _ = lax.while_loop(cond, body, carry)
+    mul = jnp.where(cdc >= 0.0, jnp.float32(1.0), jnp.float32(-1.0))
+    n_thc = mul * (tl_ / nl_ - ts_ / ns_)
+    plgpu.store(out_ref.at[pl.ds(r0, br), pl.ds(c0, bc)],
+                jnp.where(coastal, n_thc, jnp.float32(0.0)))
 
 
-def ring_thc_pallas_padded(t0_pad, cd_pad, cd_center, nn_max: int, *,
-                           maxdist: float = 180.0,
-                           tile_rows: int | None = None,
-                           tile_cols: int | None = None,
-                           interpret: bool = False):
-    """Fused ring search on NN-padded fields.
+def ring_thc_pallas(t0_pad, cd_pad, cd_center, nn_max: int, maxdist: float,
+                    *, interpret: bool = False):
+    """Coastal-band ring search on NN-padded fields.
 
     t0_pad, cd_pad : (h+2NN, w+2NN) f32 — padded sea-level temperature and
-        signed coast distance (pad via the exact boundary maps
-        single-device, or halo exchange sharded).
-    cd_center : (h, w) f32 — the *unpadded* signed coast distance, used for
-        the target-cell class sign and the coastal-band mask.
-    maxdist : km — the coastal band |cdist| <= maxdist; output is zero
-        outside it (reference semantics: the search only runs there).
-    Returns n_thc (h, w) — same contract as
-    ``ops.ring_search.ring_thc_from_padded(..., coastal=...)``.
+        signed coast distance (pad via the boundary maps single-device, or a
+        halo exchange sharded).
+    cd_center : (h, w) f32 — the unpadded signed coast distance (target class
+        and coastal band).
+    Returns n_thc (h, w), zero outside |cd_center| <= maxdist — the contract
+    of ``ops.ring_search.ring_thc_from_padded(..., coastal=...)``.  The block
+    shape and warp count are the module constants.
     """
+    block_rows, block_cols = BLOCK_ROWS, BLOCK_COLS
     NN = int(nn_max)
-    h = t0_pad.shape[0] - 2 * NN
-    w = t0_pad.shape[1] - 2 * NN
-    tile_rows, tile_cols = _default_tiles(NN, tile_rows, tile_cols)
-    th = min(tile_rows, h)
-    tw = min(tile_cols, w)
-    ni = -(-h // th)
-    nj = -(-w // tw)
-    hp_rows = ni * th
-    wp_cols = nj * tw
-
-    # Align the per-tile DMA slices to the f32 tiling quanta.
-    rows_dma = _round_up(th + 2 * NN, 8)
-    cols_dma = _round_up(tw + 2 * NN, 128)
-    # HBM padded-array extents every tile's DMA slice must fit in.
-    need_r = (ni - 1) * th + rows_dma
-    need_c = (nj - 1) * tw + cols_dma
-    pad_r = max(0, need_r - (h + 2 * NN))
-    pad_c = max(0, need_c - (w + 2 * NN))
-    if pad_r or pad_c:
-        # Fake rows/cols: t0 = 0, cdist = +sentinel (land class).  They are
-        # only read by windows of fake target cells (sliced off below) —
-        # real targets' windows stay inside the genuine padded region.
-        t0_pad = jnp.pad(t0_pad, ((0, pad_r), (0, pad_c)))
-        cd_pad = jnp.pad(cd_pad, ((0, pad_r), (0, pad_c)),
-                         constant_values=_SENTINEL)
-    if hp_rows != h or wp_cols != w:
-        # Center-block padding: sentinel -> not coastal -> those cells are
-        # never computed and are sliced off.
-        cd_center = jnp.pad(cd_center, ((0, hp_rows - h), (0, wp_cols - w)),
-                            constant_values=_SENTINEL)
-
-    out = pl.pallas_call(
-        functools.partial(_kernel, nn_max=NN, th=th, tw=tw,
-                          rows_dma=rows_dma, cols_dma=cols_dma,
-                          maxdist=float(maxdist)),
-        grid=(ni, nj),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),   # t0_pad
-            pl.BlockSpec(memory_space=pl.ANY),   # cd_pad
-            pl.BlockSpec((th, tw), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),  # cd_center
-        ],
-        out_specs=pl.BlockSpec((th, tw), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((hp_rows, wp_cols), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((rows_dma, cols_dma), jnp.float32),        # t0 strip
-            pltpu.VMEM((rows_dma, cols_dma), jnp.float32),        # cd strip
-            pltpu.VMEM((3, rows_dma, tw), jnp.float32),           # hp
-            pltpu.VMEM((3, th, cols_dma), jnp.float32),           # vc
-            pltpu.VMEM((3, th, tw), jnp.float32),                 # ws
-            pltpu.VMEM((5, th, tw), jnp.float32),                 # latches
-            pltpu.SMEM((1,), jnp.int32),                          # done flag
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=3 * 8 * NN * hp_rows * wp_cols,
-            bytes_accessed=8 * (h + 2 * NN) * (w + 2 * NN)
-            + 4 * hp_rows * wp_cols,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(t0_pad, jnp.float32), jnp.asarray(cd_pad, jnp.float32),
-      jnp.asarray(cd_center, jnp.float32))
-    return out[:h, :w]
-
-
-# ---------------------------------------------------------------------------
-# Fused ring search + trigger tail: one kernel for the whole per-cell part of
-# the trigger step (seabreeze_diag_python.f90:165-282 minus wind_at_level).
-# ---------------------------------------------------------------------------
-
-def _trigger_kernel(t0_hbm, cd_hbm, cdc_ref, wsn_ref, wdn_ref, wss_ref,
-                    wds_ref, sc_ref, out_sb, out_ws, out_wd, t0s, cds, hp,
-                    vc, ws, lat, done, sem, *, nn_max: int, th: int, tw: int,
-                    rows_dma: int, cols_dma: int, maxdist: float,
-                    thresh_wind: float, thresh_winddir: float,
-                    thresh_windch: float, thresh_thc: float,
-                    skip_last_row: bool):
-    """The ring-search kernel of ``_kernel`` plus the trigger tail
-    (thresholds, scaling, wind-state update; seabreeze_diag_python.f90:
-    236-274) fused behind it, so n_thc never round-trips HBM and the tail's
-    elementwise passes ride the same VMEM residency.
-
-    sc_ref (SMEM, (4,) f32): [is_first, upd, row_offset, nlat_total] — the
-    two state-cadence flags (functions of the traced state.tt) and the
-    block's global-row position for the reference's nlats-1 loop-bound quirk
-    (applied in-kernel when ``skip_last_row``).
-    """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    NN = int(nn_max)
-
-    coastal_c = jnp.abs(cdc_ref[:]) <= jnp.float32(maxdist)
-    any_coastal = jnp.any(coastal_c)
-
-    first = sc_ref[0] > 0.0
-    upd = sc_ref[1] > 0.0
-    if skip_last_row:
-        # Mosaic iota is integer-only; cast to f32 for the SMEM scalars.
-        grow = (sc_ref[2] + jnp.float32(i * th)
-                + jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0)
-                .astype(jnp.float32))
-        row_ok = grow < sc_ref[3] - 1.0
-    else:
-        row_ok = jnp.full((th, tw), True)
-
-    wsn = wsn_ref[:]
-    wdn = wdn_ref[:]
-    wss = wss_ref[:]
-    wds = wds_ref[:]
-
-    def tail(n_thc):
-        """seabreeze_diag_python.f90:236-263 on the tile."""
-        fc = first & coastal_c
-        ws_base = jnp.where(fc, wsn, wss)
-        wd_base = jnp.where(fc, wdn, wds)
-        thc_abs = jnp.abs(n_thc)
-        mws = (ws_base + wsn) * jnp.float32(0.5)
-        dws = jnp.abs(ws_base - wsn)
-        dwd = jnp.abs(
-            jnp.mod((wd_base - wdn) + jnp.float32(180.0), jnp.float32(360.0))
-            - jnp.float32(180.0))
-        cond = ((dwd < jnp.float32(thresh_winddir))
-                & (dws < jnp.float32(thresh_windch))
-                & (mws < jnp.float32(thresh_wind))
-                & (thc_abs > jnp.float32(thresh_thc)))
-        scale_wind = (jnp.float32(thresh_wind) - mws) / jnp.maximum(
-            jnp.float32(1.0), mws)
-        thc_safe = jnp.where(n_thc == 0.0, jnp.float32(1.0), n_thc)
-        scale_thc = (thc_abs - jnp.float32(thresh_thc)) / thc_safe
-        sb = jnp.where(coastal_c,
-                       jnp.where(cond, scale_thc * scale_wind,
-                                 jnp.float32(0.0)), _MISSING)
-        take = coastal_c & (first | upd)
-        ws_o = jnp.where(take, wsn, wss)
-        wd_o = jnp.where(take, wdn, wds)
-        out_sb[:] = jnp.where(row_ok, sb, jnp.float32(0.0))
-        out_ws[:] = jnp.where(row_ok, ws_o, wss)
-        out_wd[:] = jnp.where(row_ok, wd_o, wds)
-
-    @pl.when(jnp.logical_not(any_coastal))
-    def _skip():
-        # No coastal cell: n_thc is identically zero there, so the tail
-        # reduces to MISSING sb_con + state passthrough (plus the last-row
-        # zero quirk).
-        out_sb[:] = jnp.where(row_ok, _MISSING, jnp.float32(0.0))
-        out_ws[:] = wss
-        out_wd[:] = wds
-
-    @pl.when(any_coastal)
-    def _compute():
-        t0_dma = pltpu.make_async_copy(
-            t0_hbm.at[pl.ds(i * th, rows_dma), pl.ds(j * tw, cols_dma)],
-            t0s, sem.at[0])
-        cd_dma = pltpu.make_async_copy(
-            cd_hbm.at[pl.ds(i * th, rows_dma), pl.ds(j * tw, cols_dma)],
-            cds, sem.at[1])
-        t0_dma.start()
-        cd_dma.start()
-        t0_dma.wait()
-        cd_dma.wait()
-
-        land = (cds[:] >= 0.0).astype(jnp.float32)
-        tl = t0s[:] * land
-        tss = t0s[:] - tl
-        quants = (tl, land, tss)
-        for c, q in ((0, tl), (1, land), (2, tss)):
-            hp[c] = q[:, NN:NN + tw]
-            vc[c] = q[NN:NN + th, :]
-            ws[c] = q[NN:NN + th, NN:NN + tw]
-
-        lat[0] = jnp.zeros((th, tw), jnp.float32)
-        lat[1] = jnp.ones((th, tw), jnp.float32)
-        lat[2] = jnp.zeros((th, tw), jnp.float32)
-        lat[3] = jnp.ones((th, tw), jnp.float32)
-        lat[4] = jnp.zeros((th, tw), jnp.float32)
-        done[0] = jnp.int32(0)
-
-        for nn in range(1, NN + 1):
-            @pl.when(done[0] == 0)
-            def _ring(nn=nn):
-                for c in range(3):
-                    q = quants[c]
-                    hp[c] = (hp[c] + q[:, NN - nn:NN - nn + tw]
-                             + q[:, NN + nn:NN + nn + tw])
-                    top = hp[c, NN - nn:NN - nn + th, :]
-                    bot = hp[c, NN + nn:NN + nn + th, :]
-                    left = vc[c, :, NN - nn:NN - nn + tw]
-                    right = vc[c, :, NN + nn:NN + nn + tw]
-                    ws[c] = ws[c] + top + bot + left + right
-                    vc[c] = (vc[c] + q[NN - nn:NN - nn + th, :]
-                             + q[NN + nn:NN + nn + th, :])
-                t_l, n_l, t_s = ws[0], ws[1], ws[2]
-                n_s = jnp.float32((2 * nn + 1) ** 2) - n_l
-                found = lat[4] > 0.0
-                ok = (n_l > 0.0) & (n_s > 0.0)
-                newly = ok & (~found)
-                last = newly | (~found & (nn == NN))
-                lat[0] = jnp.where(last, t_l, lat[0])
-                lat[1] = jnp.where(last, jnp.maximum(n_l, 1.0), lat[1])
-                lat[2] = jnp.where(last, t_s, lat[2])
-                lat[3] = jnp.where(last, jnp.maximum(n_s, 1.0), lat[3])
-                new_found = found | ok
-                lat[4] = new_found.astype(jnp.float32)
-                done[0] = jnp.all(new_found | ~coastal_c).astype(jnp.int32)
-
-        mul = jnp.where(cdc_ref[:] >= 0.0, jnp.float32(1.0),
-                        jnp.float32(-1.0))
-        n_thc = mul * (lat[0] / lat[1] - lat[2] / lat[3])
-        tail(jnp.where(coastal_c, n_thc, jnp.float32(0.0)))
-
-
-def stacked_tile_extents(h: int, w: int, nn_max: int,
-                         tile_rows: int | None = None,
-                         tile_cols: int | None = None):
-    """Padded (hp_rows, wp_cols) extents of the ring kernel's tile grid —
-    the per-step slot shape of the stacked output buffers that
-    :func:`ring_trigger_pallas_stacked` writes in place."""
-    tile_rows, tile_cols = _default_tiles(int(nn_max), tile_rows, tile_cols)
-    th = min(tile_rows, h)
-    tw = min(tile_cols, w)
-    return -(-h // th) * th, -(-w // tw) * tw
-
-
-def coastal_tile_pred(cd_center_padded, maxdist: float, th: int, tw: int):
-    """Per-tile coastal predicate on a tile-grid-padded (hp_rows, wp_cols)
-    signed-distance field: True where the tile contains any |cd| <=
-    maxdist cell.  Returns a flat (ni*nj,) bool vector in row-major tile
-    order — the launch set of the compacted kernel."""
-    hp_rows, wp_cols = cd_center_padded.shape
-    ni, nj = hp_rows // th, wp_cols // tw
-    c = jnp.abs(cd_center_padded) <= jnp.float32(maxdist)
-    return jnp.any(c.reshape(ni, th, nj, tw), axis=(1, 3)).reshape(-1)
-
-
-class CompactStackedScan:
-    """Geometry + buffer/default/launch-set machinery shared by the two
-    compacted-stacked scan call sites (``models.pipeline._make_stacked_scan``
-    single-device, ``parallel.sharded._core_overlap`` per shard).
-
-    Owns the tile grid derived from the (local) field extents, the
-    pre-filled output buffers whose contents ARE the unlaunched-tile
-    semantics (MISSING-masked sb_con, passthrough initial wind — exact
-    because ``take_wind`` requires a coastal cell), and the monotone
-    ever-coastal launch set updated per scan step.
-    """
-
-    def __init__(self, h: int, w: int, nn_max: int, maxdist: float,
-                 skip_last_row: bool):
-        self.h, self.w = int(h), int(w)
-        self.hp_rows, self.wp_cols = stacked_tile_extents(h, w, nn_max)
-        tr, tc = _default_tiles(int(nn_max), None, None)
-        self.th, self.tw = min(tr, self.h), min(tc, self.w)
-        self.n_tiles = (self.hp_rows // self.th) * (self.wp_cols // self.tw)
-        self.maxdist = float(maxdist)
-        self.skip_last_row = bool(skip_last_row)
-
-    def pad_grid(self, a, fill=0.0):
-        """(h, w) -> (hp_rows, wp_cols), constant fill."""
-        return jnp.pad(a, ((0, self.hp_rows - self.h),
-                           (0, self.wp_cols - self.w)),
-                       constant_values=jnp.float32(fill))
-
-    def row_ok(self, row_offset, nlat_total: int):
-        """Valid-output-row column mask over the padded rows (reference
-        nlats-1 quirk + beyond-globe padding rows)."""
-        rows_global = row_offset + jnp.arange(self.hp_rows)
-        last = nlat_total - 1 if self.skip_last_row else nlat_total
-        return (rows_global < last)[:, None]
-
-    def init_buffers(self, T: int, windspeed0, winddir0, *, row_offset=0,
-                     nlat_total: int | None = None):
-        """Pre-filled (T, hp_rows, wp_cols) output buffers (sb, ws, wd)."""
-        nlat_total = self.h if nlat_total is None else nlat_total
-        row_ok = self.row_ok(row_offset, nlat_total)
-        zero = jnp.float32(0.0)
-        shape = (T, self.hp_rows, self.wp_cols)
-        return (jnp.broadcast_to(jnp.where(row_ok, _MISSING, zero), shape),
-                jnp.broadcast_to(
-                    jnp.where(row_ok, self.pad_grid(windspeed0), zero),
-                    shape),
-                jnp.broadcast_to(
-                    jnp.where(row_ok, self.pad_grid(winddir0), zero),
-                    shape))
-
-    def ever0(self):
-        return jnp.zeros((self.n_tiles,), bool)
-
-    def launch(self, ever, cdist):
-        """Grow the monotone ever-coastal set with this step's band and
-        compact it: returns (ever', ids, n)."""
-        pred = coastal_tile_pred(self.pad_grid(cdist, fill=_SENTINEL),
-                                 self.maxdist, self.th, self.tw)
-        ever = ever | pred
-        ids = jnp.nonzero(ever, size=self.n_tiles,
-                          fill_value=0)[0].astype(jnp.int32)
-        return ever, ids, jnp.sum(ever).astype(jnp.int32)
-
-
-def _trigger_kernel_stacked(ids_ref, t_ref, t0_hbm, cd_hbm, cdc_ref,
-                            wsn_ref, wdn_ref, wss_ref, wds_ref, sc_ref,
-                            sbb_ref, wsb_ref, wdb_ref, out_sb, out_ws,
-                            out_wd, out_wss, out_wds, t0s, cds, hp, vc, ws,
-                            lat, done, sem, *, nn_max: int, th: int,
-                            tw: int, nj: int, rows_dma: int, cols_dma: int,
-                            maxdist: float, thresh_wind: float,
-                            thresh_winddir: float, thresh_windch: float,
-                            thresh_thc: float, skip_last_row: bool):
-    """``_trigger_kernel`` restructured for the COMPACTED stacked launch:
-
-    * 1-D dynamic grid over the ever-coastal tile list only (``ids_ref``
-      scalar-prefetched; tile g is row-major id ``ids_ref[g]``) — the
-      ~95% of a global 0.1-deg grid that is open ocean/interior never
-      launches at all (measured 1.14 us of fixed per-tile overhead x 841
-      tiles = 0.96 ms/step of pure skip cost in the dense form);
-    * the step's three output fields land IN PLACE in slot ``t_ref[0]``
-      of preallocated (T, ., .) buffers (``input_output_aliases`` +
-      scalar-prefetch block index) — no ys-stack copy;
-    * the carried wind STATE is updated in place too (``wss``/``wds``
-      blocks aliased to ``out_wss``/``out_wds``): unlaunched tiles keep
-      their state bits untouched, which IS the trigger's own semantics —
-      ``take_wind`` requires a coastal cell, so never-coastal tiles never
-      change state (models/pipeline._make_stacked_scan pre-fills the
-      output buffers with exactly that passthrough default).
-    """
-    del t_ref, sbb_ref, wsb_ref, wdb_ref     # alias plumbing only
-    g = pl.program_id(0)
-    tile = ids_ref[g]
-    i = tile // nj
-    j = tile - i * nj
-    NN = int(nn_max)
-
-    # Double-buffered strip DMA: grid steps run sequentially and scratch
-    # persists across them, so each step prefetches the NEXT launched
-    # tile's (t0, cd) strips into the other slot while computing its own —
-    # the per-tile DMA latency overlaps with the ring loop.  (The blocked
-    # inputs/outputs are pipelined by Mosaic automatically; only these
-    # manual ANY-memory strip copies need explicit buffering.)
-    slot = jax.lax.rem(g, 2)
-    nxt = jax.lax.rem(g + 1, 2)
-
-    def strip_copies(gg, sl):
-        t = ids_ref[gg]
-        ii = t // nj
-        jj = t - ii * nj
-        return (pltpu.make_async_copy(
-                    t0_hbm.at[pl.ds(ii * th, rows_dma),
-                              pl.ds(jj * tw, cols_dma)],
-                    t0s.at[sl], sem.at[sl, 0]),
-                pltpu.make_async_copy(
-                    cd_hbm.at[pl.ds(ii * th, rows_dma),
-                              pl.ds(jj * tw, cols_dma)],
-                    cds.at[sl], sem.at[sl, 1]))
-
-    @pl.when(g == 0)
-    def _first():
-        for c in strip_copies(g, slot):
-            c.start()
-
-    @pl.when(g + 1 < pl.num_programs(0))
-    def _prefetch():
-        for c in strip_copies(g + 1, nxt):
-            c.start()
-
-    # Always drain this tile's strips (even skip tiles: the slot must be
-    # quiescent before a later grid step prefetches into it).
-    for c in strip_copies(g, slot):
-        c.wait()
-
-    coastal_c = jnp.abs(cdc_ref[:]) <= jnp.float32(maxdist)
-    any_coastal = jnp.any(coastal_c)
-
-    first = sc_ref[0] > 0.0
-    upd = sc_ref[1] > 0.0
-    if skip_last_row:
-        grow = (sc_ref[2] + jnp.float32(th) * i.astype(jnp.float32)
-                + jax.lax.broadcasted_iota(jnp.int32, (th, tw), 0)
-                .astype(jnp.float32))
-        row_ok = grow < sc_ref[3] - 1.0
-    else:
-        row_ok = jnp.full((th, tw), True)
-
-    wsn = wsn_ref[:]
-    wdn = wdn_ref[:]
-    wss = wss_ref[:]
-    wds = wds_ref[:]
-    zero = jnp.float32(0.0)
-
-    def tail(n_thc):
-        fc = first & coastal_c
-        ws_base = jnp.where(fc, wsn, wss)
-        wd_base = jnp.where(fc, wdn, wds)
-        thc_abs = jnp.abs(n_thc)
-        mws = (ws_base + wsn) * jnp.float32(0.5)
-        dws = jnp.abs(ws_base - wsn)
-        dwd = jnp.abs(
-            jnp.mod((wd_base - wdn) + jnp.float32(180.0), jnp.float32(360.0))
-            - jnp.float32(180.0))
-        cond = ((dwd < jnp.float32(thresh_winddir))
-                & (dws < jnp.float32(thresh_windch))
-                & (mws < jnp.float32(thresh_wind))
-                & (thc_abs > jnp.float32(thresh_thc)))
-        scale_wind = (jnp.float32(thresh_wind) - mws) / jnp.maximum(
-            jnp.float32(1.0), mws)
-        thc_safe = jnp.where(n_thc == 0.0, jnp.float32(1.0), n_thc)
-        scale_thc = (thc_abs - jnp.float32(thresh_thc)) / thc_safe
-        sb = jnp.where(coastal_c,
-                       jnp.where(cond, scale_thc * scale_wind, zero),
-                       _MISSING)
-        take = coastal_c & (first | upd)
-        ws_o = jnp.where(take, wsn, wss)
-        wd_o = jnp.where(take, wdn, wds)
-        out_sb[0] = jnp.where(row_ok, sb, zero)
-        out_ws[0] = jnp.where(row_ok, ws_o, zero)
-        out_wd[0] = jnp.where(row_ok, wd_o, zero)
-        out_wss[:] = jnp.where(row_ok, ws_o, wss)
-        out_wds[:] = jnp.where(row_ok, wd_o, wds)
-
-    @pl.when(jnp.logical_not(any_coastal))
-    def _skip():
-        # A tile in the ever-coastal set whose band moved away this step
-        # (sea ice): reference semantics degenerate to MISSING sb_con +
-        # state passthrough.
-        out_sb[0] = jnp.where(row_ok, _MISSING, zero)
-        out_ws[0] = jnp.where(row_ok, wss, zero)
-        out_wd[0] = jnp.where(row_ok, wds, zero)
-        out_wss[:] = wss
-        out_wds[:] = wds
-
-    @pl.when(any_coastal)
-    def _compute():
-        land = (cds[slot] >= 0.0).astype(jnp.float32)
-        tl = t0s[slot] * land
-        tss = t0s[slot] - tl
-        quants = (tl, land, tss)
-        for c, q in ((0, tl), (1, land), (2, tss)):
-            hp[c] = q[:, NN:NN + tw]
-            vc[c] = q[NN:NN + th, :]
-            ws[c] = q[NN:NN + th, NN:NN + tw]
-
-        lat[0] = jnp.zeros((th, tw), jnp.float32)
-        lat[1] = jnp.ones((th, tw), jnp.float32)
-        lat[2] = jnp.zeros((th, tw), jnp.float32)
-        lat[3] = jnp.ones((th, tw), jnp.float32)
-        lat[4] = jnp.zeros((th, tw), jnp.float32)
-        done[0] = jnp.int32(0)
-
-        for nn in range(1, NN + 1):
-            @pl.when(done[0] == 0)
-            def _ring(nn=nn):
-                for c in range(3):
-                    q = quants[c]
-                    hp[c] = (hp[c] + q[:, NN - nn:NN - nn + tw]
-                             + q[:, NN + nn:NN + nn + tw])
-                    top = hp[c, NN - nn:NN - nn + th, :]
-                    bot = hp[c, NN + nn:NN + nn + th, :]
-                    left = vc[c, :, NN - nn:NN - nn + tw]
-                    right = vc[c, :, NN + nn:NN + nn + tw]
-                    ws[c] = ws[c] + top + bot + left + right
-                    vc[c] = (vc[c] + q[NN - nn:NN - nn + th, :]
-                             + q[NN + nn:NN + nn + th, :])
-                t_l, n_l, t_s = ws[0], ws[1], ws[2]
-                n_s = jnp.float32((2 * nn + 1) ** 2) - n_l
-                found = lat[4] > 0.0
-                ok = (n_l > 0.0) & (n_s > 0.0)
-                newly = ok & (~found)
-                last = newly | (~found & (nn == NN))
-                lat[0] = jnp.where(last, t_l, lat[0])
-                lat[1] = jnp.where(last, jnp.maximum(n_l, 1.0), lat[1])
-                lat[2] = jnp.where(last, t_s, lat[2])
-                lat[3] = jnp.where(last, jnp.maximum(n_s, 1.0), lat[3])
-                new_found = found | ok
-                lat[4] = new_found.astype(jnp.float32)
-                done[0] = jnp.all(new_found | ~coastal_c).astype(jnp.int32)
-
-        mul = jnp.where(cdc_ref[:] >= 0.0, jnp.float32(1.0),
-                        jnp.float32(-1.0))
-        n_thc = mul * (lat[0] / lat[1] - lat[2] / lat[3])
-        tail(jnp.where(coastal_c, n_thc, zero))
-
-
-def ring_trigger_pallas_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
-                                ws_state, wd_state, is_first, upd, params,
-                                nn_max: int, step_idx, sb_buf, ws_buf,
-                                wd_buf, tile_ids, n_tiles, *, row_offset=0,
-                                nlat_total: int | None = None,
-                                tile_rows: int | None = None,
-                                tile_cols: int | None = None,
-                                interpret: bool = False):
-    """Fused ring search + trigger tail: COMPACTED launch, IN-PLACE stacked
-    outputs, in-place state update.
-
-    Same padded-field contract as :func:`ring_trigger_pallas_padded`, plus:
-
-    * ``step_idx`` — traced int32, the 0-based (T, ., .) slot to write;
-    * ``sb_buf``/``ws_buf``/``wd_buf`` — (T, hp_rows, wp_cols) f32 buffers
-      sized by :func:`stacked_tile_extents`, donated in
-      (``input_output_aliases``); slot ``step_idx`` of LAUNCHED tiles is
-      overwritten, everything else keeps its prior contents — the caller
-      pre-fills the buffers with the non-coastal default (MISSING-masked
-      sb, passthrough wind; see ``models.pipeline._make_stacked_scan``);
-    * ``tile_ids`` — (ni*nj,) int32 row-major tile ids; the first
-      ``n_tiles`` entries are the launch set (the EVER-coastal tiles — the
-      set must be monotone over a scan so unlaunched tiles provably carry
-      unchanged state);
-    * ``n_tiles`` — traced int32 dynamic grid length.
-
-    Returns ``(ws_state', wd_state', sb_buf', ws_buf', wd_buf')``; the
-    wind state arrays are ALSO updated in place (aliased), with unlaunched
-    tiles passing through untouched.
-    """
-    NN = int(nn_max)
-    h = t0_pad.shape[0] - 2 * NN
-    w = t0_pad.shape[1] - 2 * NN
-    tile_rows, tile_cols = _default_tiles(NN, tile_rows, tile_cols)
-    th = min(tile_rows, h)
-    tw = min(tile_cols, w)
-    ni = -(-h // th)
-    nj = -(-w // tw)
-    hp_rows = ni * th
-    wp_cols = nj * tw
-    T = sb_buf.shape[0]
-    for name, buf in (("sb_buf", sb_buf), ("ws_buf", ws_buf),
-                      ("wd_buf", wd_buf)):
-        if buf.shape != (T, hp_rows, wp_cols):
-            raise ValueError(
-                f"{name}: got {buf.shape}, want {(T, hp_rows, wp_cols)} "
-                f"(stacked_tile_extents)")
-    if jnp.asarray(tile_ids).shape != (ni * nj,):
-        raise ValueError(f"tile_ids: got {jnp.asarray(tile_ids).shape}, "
-                         f"want {(ni * nj,)} (CompactStackedScan.n_tiles)")
-
-    rows_dma = _round_up(th + 2 * NN, 8)
-    cols_dma = _round_up(tw + 2 * NN, 128)
-    need_r = (ni - 1) * th + rows_dma
-    need_c = (nj - 1) * tw + cols_dma
-    pad_r = max(0, need_r - (h + 2 * NN))
-    pad_c = max(0, need_c - (w + 2 * NN))
-    if pad_r or pad_c:
-        t0_pad = jnp.pad(t0_pad, ((0, pad_r), (0, pad_c)))
-        cd_pad = jnp.pad(cd_pad, ((0, pad_r), (0, pad_c)),
-                         constant_values=_SENTINEL)
-    pads = ((0, hp_rows - h), (0, wp_cols - w))
-    if hp_rows != h or wp_cols != w:
-        cd_center = jnp.pad(cd_center, pads, constant_values=_SENTINEL)
-        ws_new = jnp.pad(ws_new, pads)
-        wd_new = jnp.pad(wd_new, pads)
-        ws_state = jnp.pad(ws_state, pads)
-        wd_state = jnp.pad(wd_state, pads)
-
-    nlat_total = h if nlat_total is None else nlat_total
-    scal = jnp.stack([
-        jnp.asarray(is_first, jnp.float32),
-        jnp.asarray(upd, jnp.float32),
-        jnp.asarray(row_offset, jnp.float32),
-        jnp.float32(nlat_total)])
-
-    def tile_ij(g, ids, t):
-        del t
-        return (ids[g] // nj, ids[g] % nj)
-
-    blk = pl.BlockSpec((th, tw), tile_ij, memory_space=pltpu.VMEM)
-    stk = pl.BlockSpec(
-        (1, th, tw),
-        lambda g, ids, t: (t[0], ids[g] // nj, ids[g] % nj),
-        memory_space=pltpu.VMEM)
+    h, w = cd_center.shape
+    if t0_pad.shape != (h + 2 * NN, w + 2 * NN) or cd_pad.shape != t0_pad.shape:
+        raise ValueError(f"padded fields {t0_pad.shape}/{cd_pad.shape} do "
+                         f"not match centre {(h, w)} with nn_max={NN}")
+    ni, nj = -(-h // block_rows), -(-w // block_cols)
+    dh, dw = ni * block_rows - h, nj * block_cols - w
+    # Round the fields up to whole blocks so every load is in bounds.  Extra
+    # centre cells carry the sentinel (never coastal); extra pad cells are
+    # only read by those cells' windows.
+    f32 = jnp.float32
+    t0_pad = jnp.pad(jnp.asarray(t0_pad, f32), ((0, dh), (0, dw)))
+    cd_pad = jnp.pad(jnp.asarray(cd_pad, f32), ((0, dh), (0, dw)),
+                     constant_values=_SENTINEL)
+    cd_center = jnp.pad(jnp.asarray(cd_center, f32), ((0, dh), (0, dw)),
+                        constant_values=_SENTINEL)
     any_spec = pl.BlockSpec(memory_space=pl.ANY)
-    out2 = jax.ShapeDtypeStruct((hp_rows, wp_cols), jnp.float32)
-    buf_shape = jax.ShapeDtypeStruct((T, hp_rows, wp_cols), jnp.float32)
-    # flattened-input indexing INCLUDES the scalar-prefetch operands:
-    # 0=tile_ids, 1=step_idx, 2=t0_pad, 3=cd_pad, 4=cd_center, 5=wsn,
-    # 6=wdn, 7=wss, 8=wds, 9=scalars, 10..12=the aliased stacked buffers.
-    # Aliases: buffers -> stacked outputs 0..2; wind STATE blocks -> state
-    # outputs 3..4 (in-place update; unlaunched tiles pass through).
-    sb_buf, ws_buf, wd_buf, ws_o, wd_o = pl.pallas_call(
-        functools.partial(
-            _trigger_kernel_stacked, nn_max=NN, th=th, tw=tw, nj=nj,
-            rows_dma=rows_dma, cols_dma=cols_dma,
-            maxdist=float(params.maxdist),
-            thresh_wind=float(params.thresh_wind),
-            thresh_winddir=float(params.thresh_winddir),
-            thresh_windch=float(params.thresh_windch),
-            thresh_thc=float(params.thresh_thc),
-            skip_last_row=bool(params.skip_last_lat_row)),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(n_tiles,),
-            in_specs=[
-                any_spec,                            # t0_pad
-                any_spec,                            # cd_pad
-                blk,                                 # cd_center
-                blk, blk, blk, blk,                  # wsn, wdn, wss, wds
-                pl.BlockSpec(memory_space=pltpu.SMEM),  # scalars
-                any_spec, any_spec, any_spec,        # aliased buffers
-            ],
-            out_specs=(stk, stk, stk, blk, blk),
-            scratch_shapes=[
-                pltpu.VMEM((2, rows_dma, cols_dma), jnp.float32),  # t0 x2
-                pltpu.VMEM((2, rows_dma, cols_dma), jnp.float32),  # cd x2
-                pltpu.VMEM((3, rows_dma, tw), jnp.float32),        # hp
-                pltpu.VMEM((3, th, cols_dma), jnp.float32),        # vc
-                pltpu.VMEM((3, th, tw), jnp.float32),              # ws
-                pltpu.VMEM((5, th, tw), jnp.float32),              # latches
-                pltpu.SMEM((1,), jnp.int32),                       # done flag
-                pltpu.SemaphoreType.DMA((2, 2)),
-            ]),
-        out_shape=(buf_shape, buf_shape, buf_shape, out2, out2),
-        input_output_aliases={10: 0, 11: 1, 12: 2, 7: 3, 8: 4},
-        cost_estimate=pl.CostEstimate(
-            flops=3 * 8 * NN * hp_rows * wp_cols,
-            bytes_accessed=8 * (h + 2 * NN) * (w + 2 * NN)
-            + 9 * 4 * hp_rows * wp_cols,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(jnp.asarray(tile_ids, jnp.int32),
-      jnp.reshape(jnp.asarray(step_idx, jnp.int32), (1,)),
-      jnp.asarray(t0_pad, jnp.float32), jnp.asarray(cd_pad, jnp.float32),
-      jnp.asarray(cd_center, jnp.float32), jnp.asarray(ws_new, jnp.float32),
-      jnp.asarray(wd_new, jnp.float32), jnp.asarray(ws_state, jnp.float32),
-      jnp.asarray(wd_state, jnp.float32), scal, sb_buf, ws_buf, wd_buf)
-    return ws_o[:h, :w], wd_o[:h, :w], sb_buf, ws_buf, wd_buf
-
-
-def ring_trigger_pallas_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
-                               ws_state, wd_state, is_first, upd, params,
-                               nn_max: int, *, row_offset=0,
-                               nlat_total: int | None = None,
-                               tile_rows: int | None = None,
-                               tile_cols: int | None = None,
-                               interpret: bool = False):
-    """Fused ring search + trigger tail on NN-padded fields.
-
-    Same padded-field contract as :func:`ring_thc_pallas_padded`, plus the
-    per-cell trigger tail inputs: fresh wind (ws_new, wd_new), carried wind
-    state (ws_state, wd_state), and the traced cadence scalars ``is_first``
-    (state.tt < 2) and ``upd`` (the 6-hourly refresh predicate).  ``params``
-    is a ``core.params.Params``.  Returns (sb_con, ws_out, wd_out), each
-    (h, w) — everything of ``ops.trigger.trigger_step`` downstream of the
-    ring search except the t0/output packing.
-    """
-    NN = int(nn_max)
-    h = t0_pad.shape[0] - 2 * NN
-    w = t0_pad.shape[1] - 2 * NN
-    tile_rows, tile_cols = _default_tiles(NN, tile_rows, tile_cols)
-    th = min(tile_rows, h)
-    tw = min(tile_cols, w)
-    ni = -(-h // th)
-    nj = -(-w // tw)
-    hp_rows = ni * th
-    wp_cols = nj * tw
-
-    rows_dma = _round_up(th + 2 * NN, 8)
-    cols_dma = _round_up(tw + 2 * NN, 128)
-    need_r = (ni - 1) * th + rows_dma
-    need_c = (nj - 1) * tw + cols_dma
-    pad_r = max(0, need_r - (h + 2 * NN))
-    pad_c = max(0, need_c - (w + 2 * NN))
-    if pad_r or pad_c:
-        t0_pad = jnp.pad(t0_pad, ((0, pad_r), (0, pad_c)))
-        cd_pad = jnp.pad(cd_pad, ((0, pad_r), (0, pad_c)),
-                         constant_values=_SENTINEL)
-    pads = ((0, hp_rows - h), (0, wp_cols - w))
-    if hp_rows != h or wp_cols != w:
-        cd_center = jnp.pad(cd_center, pads, constant_values=_SENTINEL)
-        ws_new = jnp.pad(ws_new, pads)
-        wd_new = jnp.pad(wd_new, pads)
-        ws_state = jnp.pad(ws_state, pads)
-        wd_state = jnp.pad(wd_state, pads)
-
-    nlat_total = h if nlat_total is None else nlat_total
-    scal = jnp.stack([
-        jnp.asarray(is_first, jnp.float32),
-        jnp.asarray(upd, jnp.float32),
-        jnp.asarray(row_offset, jnp.float32),
-        jnp.float32(nlat_total)])
-
-    blk = pl.BlockSpec((th, tw), lambda i, j: (i, j),
-                       memory_space=pltpu.VMEM)
-    out3 = jax.ShapeDtypeStruct((hp_rows, wp_cols), jnp.float32)
-    sb, ws_o, wd_o = pl.pallas_call(
-        functools.partial(
-            _trigger_kernel, nn_max=NN, th=th, tw=tw, rows_dma=rows_dma,
-            cols_dma=cols_dma, maxdist=float(params.maxdist),
-            thresh_wind=float(params.thresh_wind),
-            thresh_winddir=float(params.thresh_winddir),
-            thresh_windch=float(params.thresh_windch),
-            thresh_thc=float(params.thresh_thc),
-            skip_last_row=bool(params.skip_last_lat_row)),
+    out = pl.pallas_call(
+        functools.partial(_kernel, nn_max=NN, br=block_rows, bc=block_cols,
+                          maxdist=float(maxdist)),
+        out_shape=jax.ShapeDtypeStruct(cd_center.shape, f32),
         grid=(ni, nj),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),   # t0_pad
-            pl.BlockSpec(memory_space=pl.ANY),   # cd_pad
-            blk,                                 # cd_center
-            blk, blk, blk, blk,                  # ws_new, wd_new, wss, wds
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # scalars
-        ],
-        out_specs=(blk, blk, blk),
-        out_shape=(out3, out3, out3),
-        scratch_shapes=[
-            pltpu.VMEM((rows_dma, cols_dma), jnp.float32),        # t0 strip
-            pltpu.VMEM((rows_dma, cols_dma), jnp.float32),        # cd strip
-            pltpu.VMEM((3, rows_dma, tw), jnp.float32),           # hp
-            pltpu.VMEM((3, th, cols_dma), jnp.float32),           # vc
-            pltpu.VMEM((3, th, tw), jnp.float32),                 # ws
-            pltpu.VMEM((5, th, tw), jnp.float32),                 # latches
-            pltpu.SMEM((1,), jnp.int32),                          # done flag
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=3 * 8 * NN * hp_rows * wp_cols,
-            bytes_accessed=8 * (h + 2 * NN) * (w + 2 * NN)
-            + 7 * 4 * hp_rows * wp_cols,
-            transcendentals=0,
-        ),
+        in_specs=[any_spec, any_spec, any_spec],
+        out_specs=any_spec,
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(jnp.asarray(t0_pad, jnp.float32), jnp.asarray(cd_pad, jnp.float32),
-      jnp.asarray(cd_center, jnp.float32), jnp.asarray(ws_new, jnp.float32),
-      jnp.asarray(wd_new, jnp.float32), jnp.asarray(ws_state, jnp.float32),
-      jnp.asarray(wd_state, jnp.float32), scal)
-    return sb[:h, :w], ws_o[:h, :w], wd_o[:h, :w]
+        backend="triton",
+        name="ring_thc",
+    )(t0_pad, cd_pad, cd_center)
+    return out[:h, :w]

@@ -10,8 +10,8 @@ radius nn = 1, 2, ... until it contains both a "coastal land" point
 with mul = +1 on land targets, -1 on sea targets, window indexing through
 the clamped-lat / quirky-lon maps (seabreeze_diag_python.f90:201-202).
 
-A data-dependent ``while`` per point cannot map to the VPU.  The TPU-native
-form used here:
+A data-dependent ``while`` per point does not vectorise.  The form used
+here:
 
 1. The required radius is *bounded*: the search only runs where
    |cdist| <= maxdist, i.e. within k cells of a coastline cell, and every
@@ -156,7 +156,7 @@ def ring_thc_from_padded(P, mul, nn_max: int, *, coastal=None):
     # Latched per-class sums at each cell's first-found radius.  Dividing
     # once at the end on the latched operands is bit-identical to dividing
     # inside the loop (same operands), and drops 2*NN full-field divisions
-    # to 2 — divisions are the VPU's most expensive elementwise op.
+    # to 2 — division is the most expensive elementwise op.
     Tl = jnp.zeros((nlat, nlon), jnp.float32)
     Nl = jnp.ones((nlat, nlon), jnp.float32)
     Ts = jnp.zeros((nlat, nlon), jnp.float32)

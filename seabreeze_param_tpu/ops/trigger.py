@@ -76,7 +76,9 @@ def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
     what lets the sharded caller overlap the exchange with the wind
     compute.  ``t0``/``cdist`` are the unpadded centers (the target cell's
     own class/coastal predicate is read unremapped,
-    seabreeze_diag_python.f90:171,220).
+    seabreeze_diag_python.f90:171,220).  ``use_pallas`` runs the ring search
+    as the coastal-band GPU kernel (``ops.pallas.ring_kernel``);
+    ``pallas_interpret`` runs that kernel in interpret mode (tests only).
     """
     cdist = jnp.asarray(cdist, jnp.float32)
     coastal = jnp.abs(cdist) <= jnp.float32(params.maxdist)
@@ -85,39 +87,15 @@ def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
                   params.target_time_seconds) < jnp.float32(1.0e-4)
 
     if use_pallas:
-        # Fused ring + trigger tail: everything per-cell downstream of t0
-        # and the wind selection runs in one Pallas kernel (n_thc never
-        # round-trips HBM, the tail rides the tiles' VMEM residency).
-        from .pallas.ring_kernel import ring_trigger_pallas_padded
-        out_sb, ws_out, wd_out = ring_trigger_pallas_padded(
-            t0_pad, cd_pad, cdist, ws_new, wd_new, state.windspeed,
-            state.winddir, is_first, upd, params, nn_max,
-            row_offset=row_offset, nlat_total=nlat_total,
-            interpret=pallas_interpret)
-        if params.skip_last_lat_row:
-            # The kernel freezes the last row's wind STATE (returns the
-            # carried wss/wds there); the OUTPUT slots must still be zero
-            # like the XLA path's (reference never writes that row).
-            nlat = nlat_total if nlat_total is not None else t0.shape[0]
-            row_ok = ((row_offset + jnp.arange(t0.shape[0]))
-                      < nlat - 1)[:, None]
-            zero = jnp.float32(0.0)
-            out_t0 = jnp.where(row_ok, t0, zero)
-            out_ws = jnp.where(row_ok, ws_out, zero)
-            out_wd = jnp.where(row_ok, wd_out, zero)
-        else:
-            out_t0, out_ws, out_wd = t0, ws_out, wd_out
-        new_state = TriggerState(tt=state.tt + 1, thc=out_t0,
-                                 windspeed=ws_out, winddir=wd_out)
-        outputs = {"sb_con": out_sb, "t0": out_t0, "windspeed": out_ws,
-                   "winddir": out_wd}
-        return new_state, outputs
-
-    # XLA path: quantities computed elementwise ON the padded fields —
-    # identical to padding the quantities (every pad slot is a value copy).
-    mul = jnp.where(cdist >= 0.0, jnp.float32(1.0), jnp.float32(-1.0))
-    n_thc, _ = ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul,
-                                    nn_max, coastal=coastal)
+        from .pallas.ring_kernel import ring_thc_pallas
+        n_thc = ring_thc_pallas(t0_pad, cd_pad, cdist, nn_max,
+                                params.maxdist, interpret=pallas_interpret)
+    else:
+        # quantities computed elementwise ON the padded fields — identical
+        # to padding the quantities (every pad slot is a value copy).
+        mul = jnp.where(cdist >= 0.0, jnp.float32(1.0), jnp.float32(-1.0))
+        n_thc, _ = ring_thc_from_padded(ring_quantities(t0_pad, cd_pad),
+                                        mul, nn_max, coastal=coastal)
 
     # First-timestep seeding (seabreeze_diag_python.f90:236-240): coastal
     # points adopt the fresh wind before differences are formed.
@@ -172,74 +150,6 @@ def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
     outputs = {"sb_con": out_sb, "t0": out_t0, "windspeed": out_ws,
                "winddir": out_wd}
     return new_state, outputs
-
-
-def trigger_core_stacked(state: TriggerState, t0, cdist, ws_new, wd_new,
-                         t0_pad, cd_pad, params: Params, nn_max: int,
-                         step_idx, sb_buf, ws_buf, wd_buf, tile_ids,
-                         n_tiles, *, row_offset=0,
-                         nlat_total: int | None = None,
-                         pallas_interpret: bool = False):
-    """:func:`trigger_core`'s compacted-stacked analogue, from pre-padded
-    ring inputs (single-device ``pad2d`` or sharded halo exchange — the
-    overlapped mesh pipeline calls this directly with its apron-computed
-    pads).  Returns ``(new_state, out_t0, sb_buf, ws_buf, wd_buf)``."""
-    from .pallas.ring_kernel import ring_trigger_pallas_stacked
-
-    cdist = jnp.asarray(cdist, jnp.float32)
-    is_first = state.tt < 2
-    upd = jnp.mod(state.tt.astype(jnp.float32) * params.timestep_seconds,
-                  params.target_time_seconds) < jnp.float32(1.0e-4)
-    ws_out, wd_out, sb_buf, ws_buf, wd_buf = ring_trigger_pallas_stacked(
-        t0_pad, cd_pad, cdist, ws_new, wd_new, state.windspeed,
-        state.winddir, is_first, upd, params, nn_max, step_idx,
-        sb_buf, ws_buf, wd_buf, tile_ids, n_tiles, row_offset=row_offset,
-        nlat_total=nlat_total, interpret=pallas_interpret)
-    if params.skip_last_lat_row:
-        nlat = nlat_total if nlat_total is not None else t0.shape[0]
-        row_ok = ((row_offset + jnp.arange(t0.shape[0])) < nlat - 1)[:, None]
-        out_t0 = jnp.where(row_ok, t0, jnp.float32(0.0))
-    else:
-        out_t0 = t0
-    new_state = TriggerState(tt=state.tt + 1, thc=out_t0,
-                             windspeed=ws_out, winddir=wd_out)
-    return new_state, out_t0, sb_buf, ws_buf, wd_buf
-
-
-def trigger_step_stacked(state: TriggerState, theta, u, v, cdist, z, std,
-                         pres, params: Params, nn_max: int, step_idx,
-                         sb_buf, ws_buf, wd_buf, tile_ids, n_tiles, *,
-                         smod=None, pallas_interpret: bool = False):
-    """One trigger timestep writing its output slots IN PLACE into
-    preallocated (T, ·, ·) scan buffers, launching ONLY the ever-coastal
-    tiles (single-device Pallas production path; see
-    ``ops.pallas.ring_kernel.ring_trigger_pallas_stacked``).
-
-    Semantics are identical to :func:`trigger_step` with
-    ``use_pallas=True``; the differences are where the stacked outputs
-    land — slot ``step_idx`` of the carried buffers instead of per-step
-    ys-stack copies — and that non-coastal tiles never launch (their slot
-    contents are the pre-filled defaults, their state passes through
-    untouched — exactly the trigger's own semantics).  ``tile_ids`` /
-    ``n_tiles`` come from the scan's monotone ever-coastal set
-    (``models.pipeline._make_stacked_scan``).  Returns
-    ``(new_state, out_t0, sb_buf, ws_buf, wd_buf)``; ``out_t0`` is
-    returned per-step (pure XLA fusion output — its ys-stack write fuses).
-    """
-    from .indexing import pad2d
-
-    if smod is None:
-        smod = sigmoid_weight(std)
-    t0 = sea_level_temperature(theta, z, smod)
-    cdist = jnp.asarray(cdist, jnp.float32)
-    ws_new, wd_new = wind_at_level(u, v, pres, params.target_plev_pa)
-    t0_pad = pad2d(t0, nn_max, nn_max, exact_lon=params.exact_lon_indexing)
-    cd_pad = pad2d(cdist, nn_max, nn_max,
-                   exact_lon=params.exact_lon_indexing)
-    return trigger_core_stacked(
-        state, t0, cdist, ws_new, wd_new, t0_pad, cd_pad, params, nn_max,
-        step_idx, sb_buf, ws_buf, wd_buf, tile_ids, n_tiles,
-        pallas_interpret=pallas_interpret)
 
 
 def trigger_step(state: TriggerState, theta, u, v, cdist, z, std, pres,

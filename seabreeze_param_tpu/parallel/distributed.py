@@ -2,11 +2,12 @@
 
 The reference UM runs MPI-decomposed across nodes, with ``swap_bounds``
 crossing node boundaries transparently (``UM/vn10.7/sea_breeze_diag.F90:
-408-410``; SURVEY §5.8).  The TPU-native equivalent: one JAX process per
-host, ``jax.distributed.initialize`` for the coordination runtime, a global
+408-410``; SURVEY §5.8).  The JAX equivalent: one JAX process per host,
+``jax.distributed.initialize`` for the coordination runtime, a global
 ('y', 'x') mesh over all processes' devices, and the SAME ``shard_map``
-pipeline — GSPMD routes shard-boundary ppermutes over ICI within a slice
-and DCN between hosts, with no code difference.
+pipeline — XLA sends the shard-boundary ppermutes through NCCL, over NVLink
+between the GPUs of a host and over the network between hosts, with no code
+difference.
 
 The feeding side is what actually changes at scale: a host must never
 materialize the global 0.1-degree arrays.  :meth:`DistributedRunner.run`
@@ -47,8 +48,8 @@ def initialize(coordinator_address: str | None = None,
 
     Arguments default to the standard env vars
     (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
-    ``JAX_PROCESS_ID``) — on Cloud TPU pods all of this is auto-detected
-    and ``initialize()`` needs no arguments at all.
+    ``JAX_PROCESS_ID``); nothing on a plain GPU host announces a cluster,
+    so a multi-process launch sets them (or passes the arguments).
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -65,8 +66,9 @@ def initialize(coordinator_address: str | None = None,
 
 def make_multihost_mesh(shape: tuple[int, int] | None = None):
     """Global ('y', 'x') mesh with each process's devices CONTIGUOUS along
-    'y' (lat): the y-exchange at a process boundary is then the only DCN
-    crossing, and every x-ring stays intra-host (ICI).
+    'y' (lat): the y-exchange at a process boundary is then the only
+    inter-host crossing, and every x-exchange stays within a host
+    (NVLink).
 
     Default shape: y = num_processes * (per-host y), near-square within the
     host.  ``jax.devices()`` orders devices by process, so a plain reshape
@@ -76,7 +78,8 @@ def make_multihost_mesh(shape: tuple[int, int] | None = None):
     nproc = jax.process_count()
     per = len(devices) // nproc
     if shape is None:
-        # within a host: near-square, biased toward x (the pure ring axis)
+        # within a host: near-square (smallest shard perimeter, i.e. fewest
+        # halo bytes), the extra factor on x (lon, usually the longer axis)
         py = int(np.floor(np.sqrt(per)))
         while per % py:
             py -= 1

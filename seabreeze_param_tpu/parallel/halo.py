@@ -1,11 +1,12 @@
-"""ICI halo exchange — the TPU-native ``swap_bounds``.
+"""Halo exchange — the JAX ``swap_bounds``.
 
 Replaces the reference's MPI halo exchange (UM ``swap_bounds``,
 ``UM/vn10.7/sea_breeze_diag.F90:408-410, 531-545``; no-op stub
 ``generic/halo_exchange_mod.f90:8-18``) with ``jax.lax.ppermute`` shifts on
-a ('y', 'x') mesh inside ``shard_map``.  Longitude is a ring (ICI torus
-wrap); latitude is bounded, with the global-edge shards filling their
-missing halo locally according to the reference's boundary semantics:
+a ('y', 'x') mesh inside ``shard_map``, which XLA lowers to NCCL
+collective-permutes between GPUs.  Longitude is periodic; latitude is
+bounded, with the global-edge shards filling their missing halo locally
+according to the reference's boundary semantics:
 
   * ``lat_fill='clamp'`` — replicate the global edge row (the Fortran
     ``min(max(1, i), nlats)`` clamp; sobel + ring search).
@@ -25,16 +26,15 @@ periodic exchange (see ops.indexing):
 Two APIs:
 
 * :func:`halo_pad` — the one-shot exchange (pad-and-return).
-* :func:`halo_start` / :func:`halo_finish` — the SPLIT-PHASE exchange for
-  compute/communication overlap: ``halo_start`` issues all eight neighbor
-  transfers (4 edges + 4 corners, each an independent ``ppermute`` that XLA
-  lowers to an async collective-permute start/done pair on TPU); any
-  independent compute placed between start and finish — e.g. the step's
-  ``wind_at_level``, its largest HBM read — overlaps the ICI transfers
-  under XLA's latency-hiding scheduler.  ``halo_finish`` assembles the
-  padded block and applies the boundary fills/patches.  This is the
-  TPU-native replacement for the reference UM's overlap-free blocking
-  ``swap_bounds`` sequence (``UM/vn10.7/sea_breeze_diag.F90:531-545``).
+* :func:`halo_start` / :func:`halo_finish` — the SPLIT-PHASE exchange:
+  ``halo_start`` issues all eight neighbor transfers (4 edges + 4 corners,
+  each an independent ``ppermute``) and ``halo_finish`` assembles the
+  padded block and applies the boundary fills/patches.  Independent compute
+  traced between the two — e.g. the step's ``wind_at_level`` — is free to
+  overlap the transfers; whether XLA's scheduler does so on a GPU is read
+  off a trace (PERF.md), not assumed.  The reference UM's ``swap_bounds``
+  sequence blocks on every exchange
+  (``UM/vn10.7/sea_breeze_diag.F90:531-545``).
 
 The corner blocks travel as separate two-hop ppermutes (x-shift then
 y-shift of an (hy, hx) block) so that *all* transfers are issued up front;

@@ -3,10 +3,14 @@
 The reference's only inter-process parallelism is a 2-D spatial domain
 decomposition with MPI halo exchange (UM ``swap_bounds``,
 ``UM/vn10.7/sea_breeze_diag.F90:408-410``; stub
-``generic/halo_exchange_mod.f90``).  The TPU-native equivalent is a
-``jax.sharding.Mesh`` with axes ('y', 'x') over the pod slice; lat shards
-ride 'y', lon shards ride 'x', and neighbor exchanges become ICI
-``ppermute`` steps (``parallel.halo``).
+``generic/halo_exchange_mod.f90``).  Here it is a ``jax.sharding.Mesh``
+with axes ('y', 'x') over the GPUs; lat shards ride 'y', lon shards ride
+'x', and neighbor exchanges become ``ppermute`` steps (``parallel.halo``)
+that XLA hands to NCCL.
+
+The GPUs of one host reach each other all to all over NVLink at one rate,
+so the network does not favour any axis: what a mesh shape costs is the
+halo bytes each shard sends, which grow with its perimeter.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ def make_mesh(shape: tuple[int, int] | None = None,
     """Build a ('y', 'x') mesh.
 
     ``shape=None`` picks a near-square factorization of the available
-    devices, biased toward more lon ('x') shards — lon is usually the longer
-    axis and its exchange is a pure ring.
+    devices — near-square keeps each shard's perimeter, and so its halo
+    bytes, small — with the extra factor on lon ('x'), usually the longer
+    axis.
     """
     if devices is None:
         devices = jax.devices()

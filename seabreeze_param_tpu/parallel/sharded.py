@@ -1,7 +1,7 @@
 """Sharded trigger pipeline: shard_map over a ('y', 'x') device mesh.
 
-2-D spatial domain decomposition with explicit ICI halo exchange — the
-TPU-native re-design of the reference's MPI-decomposed UM variant
+2-D spatial domain decomposition with explicit halo exchange — the JAX
+re-design of the reference's MPI-decomposed UM variant
 (``UM/vn10.7/sea_breeze_diag.F90``, SURVEY §2.8, §5.8).  Everything that was
 a ``swap_bounds`` call becomes a ``parallel.halo`` exchange; the sigmoid's
 global statistics become psum/pmax/pmin (SURVEY §2 native-checklist item 2).
@@ -23,9 +23,11 @@ the top of the step, and computes the rest of its halos locally:
 
   Both exchanges are issued with ``halo_start`` before the step's biggest
   independent compute — ``wind_at_level``, which reads the full 3-D u/v
-  fields — and finished after it, so the ICI transfers overlap that HBM
-  sweep under XLA's latency-hiding scheduler (ppermute lowers to async
-  collective-permute start/done on TPU).  The sigmoid's global reduction is
+  fields — and finished after it, so XLA's scheduler may overlap the
+  transfers (NCCL send/recv between GPUs) with that sweep.  On four H100s
+  it does not: the trace shows 75-88% of the NCCL time with no kernel
+  beside it (PERF.md, ``benchmarks/trace_overlap.py``).  The sigmoid's global
+  reduction is
   hoisted out of the time scan entirely (std is static), removing a
   per-step collective barrier.
 
@@ -47,7 +49,7 @@ Apron-replication correctness (the reason the overlapped form is exact):
     cannot win the distance min: the global distance tables poison
     out-of-grid source rows with BIG (``ops.distance.distance_tables``);
   * beyond-globe cdist/t0 apron rows are explicitly clamp-replicated from
-    the globe-edge row, reproducing the reference's lat clamp.
+    the real globe-edge row, reproducing the reference's lat clamp.
 
 Lat divisibility is handled by **edge-row replication padding**, which is
 *exactly idempotent* under the reference's boundary semantics:
@@ -59,8 +61,11 @@ Lat divisibility is handled by **edge-row replication padding**, which is
     duplicate (identical haversine parameter) of a real edge-row coastline
     cell — provably a subset of the edge row's coast — and the distance min
     dedups it;
-  * fake-row cdist/t0 come out as exact copies of the edge row's, keeping
-    the ring-search class counts identical to the clamp's.
+  * fake-row t0 comes out as an exact copy of the edge row's; fake-row
+    cdist need not (the fake row's own Sobel coastline can differ from the
+    edge row's), so every row beyond the real edge is explicitly given the
+    edge row's cdist, keeping the ring-search class counts identical to
+    the clamp's.
 
 Global statistics exclude fake rows via ``valid_mask``; outputs are sliced
 back to the real rows on the host.
@@ -81,7 +86,7 @@ from ..core.state import TriggerState
 from ..models.pipeline import TriggerPipeline
 from ..ops.coastline import make_mask, sobel_edges_from_padded
 from ..ops.distance import (distance_tables, finalize_distance,
-                            min_haversine_param_from_padded, resolve_impl)
+                            min_haversine_param_from_padded)
 from ..ops.orography import sigmoid_weight
 from ..ops.trigger import (sea_level_temperature, trigger_core, trigger_step,
                            wind_at_level)
@@ -99,6 +104,17 @@ def _pad_lat_host(arr, nlat_pad, axis=-2):
     return np.take(arr, idx, axis=axis)
 
 
+def _clamp_to_edge_row(cd, beyond, edge):
+    """``cd`` with every row flagged ``beyond`` the real globe edge replaced
+    by row ``edge`` (the edge row's local index).  A replication-padding row
+    copies the edge row's INPUTS, but its own Sobel coastline — and so its
+    signed distance, and with it the land/sea class the ring search counts
+    — can differ from the edge row's; the reference's lat clamp reads the
+    edge row itself."""
+    edge_row = lax.dynamic_slice_in_dim(cd, edge, 1, axis=0)
+    return jnp.where(beyond, edge_row, cd)
+
+
 @dataclasses.dataclass
 class ShardedPipeline:
     """shard_map-parallel version of :class:`TriggerPipeline`.
@@ -112,10 +128,6 @@ class ShardedPipeline:
     pipeline: TriggerPipeline
     mesh: jax.sharding.Mesh
     overlap: object = "auto"
-    # 'ppermute' (default: XLA collective-permutes, overlap-friendly) or
-    # 'dma' (explicit Pallas make_async_remote_copy neighbor DMA,
-    # ops/pallas/halo_kernel.py) — basic step structure only.
-    halo_backend: str = "ppermute"
 
     def __post_init__(self):
         grid = self.pipeline.grid
@@ -155,17 +167,6 @@ class ShardedPipeline:
         # (parallel.halo.quirky_seam_patch covers hx < w only).
         exact = self.pipeline.params.exact_lon_indexing
         max_w = local_w - 1 if exact else local_w
-        if self.halo_backend == "dma":
-            # The explicit-DMA exchange only exists in the basic step
-            # structure; honoring the request must not silently fall back
-            # to ppermute when overlap would auto-resolve True.
-            if self.overlap == "auto":
-                self.overlap = False
-            elif self.overlap:
-                raise ValueError(
-                    "halo_backend='dma' requires the basic step structure; "
-                    "pass overlap=False (the overlapped form issues "
-                    "ppermute exchanges by design)")
         if self.overlap == "auto":
             self.overlap = a_m <= local_h and a_m <= max_w
         widest = a_m if self.overlap else basic
@@ -185,7 +186,6 @@ class ShardedPipeline:
         pipe = self.pipeline
         params = pipe.params
         exact = params.exact_lon_indexing
-        impl = resolve_impl(pipe.distance_impl)
         h, w = lsm.shape
         nn, k = self.nn_max, self.k
         a_m = nn + k + 1
@@ -207,20 +207,24 @@ class ShardedPipeline:
                        self.grid_padded.nlon)
         sdlam2_e = jnp.take(sdlam2_g, cidx, axis=0)
         below = (gr < 0)[:, None]
-        above = (gr >= self.nlat_pad)[:, None]
+        # beyond the REAL globe edge: replication-padding rows and rows past
+        # the padded grid alike (see _clamp_to_edge_row)
+        above = (gr > self.nlat_real - 1)[:, None]
+        edge = jnp.clip(self.nlat_real - 1 - row_offset + nn, 0,
+                        h + 2 * nn - 1)
 
         def distance_ext(mask_pad):
             """Signed coast distance on the (h+2nn, w+2nn) ext block, all
             computed locally from the mask apron."""
             coast_ext = sobel_edges_from_padded(mask_pad)
             amin = min_haversine_param_from_padded(
-                coast_ext, sdphi2_e, po_e, sdlam2_e, k, impl=impl,
-                interpret=pipe.pallas_interpret, half_dlam=self.half_dlam)
+                coast_ext, sdphi2_e, po_e, sdlam2_e, k,
+                half_dlam=self.half_dlam)
             cd = finalize_distance(amin, lsm_ext, params.maxdist)
-            # beyond-globe apron rows: the reference's lat clamp == the
-            # globe-edge row's values
+            # rows beyond the globe take the edge row's values: the
+            # reference's lat clamp
             cd = jnp.where(below, cd[nn:nn + 1, :], cd)
-            return jnp.where(above, cd[nn + h - 1:nn + h, :], cd)
+            return _clamp_to_edge_row(cd, above, edge)
 
         cd_ext0 = None
         if not has_ci:
@@ -240,8 +244,8 @@ class ShardedPipeline:
             else:
                 th, uu, vv = x
             ft = halo_start(th, nn, nn)
-            # the step's largest independent HBM read — overlaps the ICI
-            # transfers issued above
+            # the step's largest independent read of device memory, free to
+            # overlap the transfers issued above
             ws_new, wd_new = wind_at_level(uu, vv, pres,
                                            params.target_plev_pa)
             if has_ci:
@@ -262,50 +266,15 @@ class ShardedPipeline:
                 t0_ring, cd_ring = t0_ext, cd_ext
             return t0, cdist, ws_new, wd_new, t0_ring, cd_ring
 
-        if not pipe.use_pallas:
-            def scan_fn(carry, x):
-                t0, cdist, ws_new, wd_new, t0_ring, cd_ring = step_fields(x)
-                return trigger_core(
-                    carry, t0, cdist, ws_new, wd_new, t0_ring, cd_ring,
-                    params, nn, row_offset=row_offset,
-                    nlat_total=self.nlat_real, use_pallas=False,
-                    pallas_interpret=pipe.pallas_interpret)
-
-            return lax.scan(scan_fn, state, xs)
-
-        # Pallas production: the compacted-stacked kernel per shard — the
-        # same structure as the single-device scan
-        # (models.pipeline._make_stacked_scan): per-step output slots land
-        # in carried (T, ·, ·) buffers in place, and only the shard's
-        # EVER-coastal tiles launch (monotone set; pre-filled passthrough
-        # defaults are provably what unlaunched tiles would compute).
-        from ..ops.pallas.ring_kernel import CompactStackedScan
-        from ..ops.trigger import trigger_core_stacked
-
-        T = xs[0].shape[0]
-        css = CompactStackedScan(h, w, nn, params.maxdist,
-                                 params.skip_last_lat_row)
-        sb_b, ws_b, wd_b = css.init_buffers(
-            T, state.windspeed, state.winddir, row_offset=row_offset,
-            nlat_total=self.nlat_real)
-
-        def scan_stacked(carry, x):
-            st, idx, ever, sb_b, ws_b, wd_b = carry
+        def scan_fn(carry, x):
             t0, cdist, ws_new, wd_new, t0_ring, cd_ring = step_fields(x)
-            ever, ids, ntl = css.launch(ever, cdist)
-            st, out_t0, sb_b, ws_b, wd_b = trigger_core_stacked(
-                st, t0, cdist, ws_new, wd_new, t0_ring, cd_ring, params,
-                nn, idx, sb_b, ws_b, wd_b, ids, ntl,
-                row_offset=row_offset, nlat_total=self.nlat_real,
+            return trigger_core(
+                carry, t0, cdist, ws_new, wd_new, t0_ring, cd_ring, params,
+                nn, row_offset=row_offset, nlat_total=self.nlat_real,
+                use_pallas=pipe.use_pallas,
                 pallas_interpret=pipe.pallas_interpret)
-            return (st, idx + 1, ever, sb_b, ws_b, wd_b), out_t0
 
-        carry0 = (state, jnp.int32(0), css.ever0(), sb_b, ws_b, wd_b)
-        (final, _, _, sb_b, ws_b, wd_b), t0s = lax.scan(scan_stacked,
-                                                        carry0, xs)
-        outs = {"sb_con": sb_b[:, :h, :w], "t0": t0s,
-                "windspeed": ws_b[:, :h, :w], "winddir": wd_b[:, :h, :w]}
-        return final, outs
+        return lax.scan(scan_fn, state, xs)
 
     # ------------------------------------------------------------------
     def _core_basic(self, state, xs, lsm, z, std, pres, sdphi2_g, po_g,
@@ -314,18 +283,6 @@ class ShardedPipeline:
         pipe = self.pipeline
         params = pipe.params
         exact = params.exact_lon_indexing
-        if self.halo_backend == "dma":
-            from ..ops.pallas.halo_kernel import halo_exchange_dma
-            interp = False
-            if pipe.pallas_interpret:
-                from jax.experimental.pallas import tpu as pltpu
-                interp = pltpu.InterpretParams()
-            exchange = functools.partial(halo_exchange_dma,
-                                         interpret=interp)
-        elif self.halo_backend == "ppermute":
-            exchange = halo_pad
-        else:
-            raise ValueError(self.halo_backend)
         h, w = lsm.shape
         row_offset = lax.axis_index(AXIS_Y) * h
         col_offset = lax.axis_index(AXIS_X) * w
@@ -335,20 +292,21 @@ class ShardedPipeline:
         sdlam2 = lax.dynamic_slice_in_dim(sdlam2_g, col_offset, w, 0)
 
         def ring_pad(q, nn):
-            return exchange(q, nn, nn, lat_fill="clamp", exact_lon=exact)
+            return halo_pad(q, nn, nn, lat_fill="clamp", exact_lon=exact)
 
         def distance(ci):
             mask = make_mask(lsm, ci)
-            mpad = exchange(mask, 1, 1, lat_fill="clamp", exact_lon=exact)
+            mpad = halo_pad(mask, 1, 1, lat_fill="clamp", exact_lon=exact)
             coast = sobel_edges_from_padded(mpad)
             # get_dist uses the clean periodic lon map (sobel.f90:163-164)
-            cpad = exchange(coast, self.k, self.k, lat_fill="zero",
+            cpad = halo_pad(coast, self.k, self.k, lat_fill="zero",
                             exact_lon=False)
             amin = min_haversine_param_from_padded(
-                cpad, sdphi2, po, sdlam2, self.k,
-                impl=resolve_impl(pipe.distance_impl),
-                interpret=pipe.pallas_interpret, half_dlam=self.half_dlam)
-            return finalize_distance(amin, lsm, params.maxdist)
+                cpad, sdphi2, po, sdlam2, self.k, half_dlam=self.half_dlam)
+            cd = finalize_distance(amin, lsm, params.maxdist)
+            return _clamp_to_edge_row(cd, ~valid,
+                                      jnp.clip(self.nlat_real - 1 - row_offset,
+                                               0, h - 1))
 
         # Static coastline (no sea ice): one distance transform outside the
         # scan, like the unsharded pipeline (reference __init__.py:216-218).

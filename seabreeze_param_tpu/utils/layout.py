@@ -7,7 +7,7 @@ converter ``c2f`` before and after each f2py kernel call
 column-major, so a NumPy (time, lev, lat, lon) C array becomes the
 (lon, lat, lev, time) Fortran array the kernels expect.
 
-The TPU framework needs none of this on its hot path — fields stay
+The framework needs none of this on its hot path — fields stay
 (…, nlat, nlon) C-order end to end — but the converter is kept for interop
 tests against Fortran-convention golden data and for users porting drivers
 that pre-transposed their arrays.

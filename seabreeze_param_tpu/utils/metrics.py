@@ -77,7 +77,7 @@ class _Timed:
 
 def device_memory_stats() -> dict:
     """Best-effort per-device memory usage (bytes); {} when the backend
-    doesn't expose stats (CPU, some tunneled backends)."""
+    does not expose stats (the CPU backend)."""
     import jax
     out = {}
     for d in jax.local_devices():

@@ -2,7 +2,7 @@
 
 The reference's UM variant wraps every routine in ECMWF DrHook enter/exit
 calls with ``Module:Routine`` labels
-(``UM/vn10.7/sea_breeze_diag.F90:64-65,140-142,172,324``).  The TPU-native
+(``UM/vn10.7/sea_breeze_diag.F90:64-65,140-142,172,324``).  The JAX
 counterpart has two halves:
 
   * **device side** — ``jax.named_scope`` annotations that tag the XLA ops
@@ -122,3 +122,27 @@ def device_info() -> dict:
         "num_hosts": jax.process_count(),
         "device_kind": devs[0].device_kind,
     }
+
+
+def require_gpu():
+    """The local devices when JAX's default backend is a GPU; raises
+    otherwise.  Measurement and on-card check paths call this so they never
+    fall back to the CPU and report its numbers as the card's."""
+    import jax
+    if jax.default_backend() != "gpu":
+        raise RuntimeError(
+            f"no GPU: JAX's default backend is {jax.default_backend()!r}")
+    return jax.devices()
+
+
+def card_info() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (one line per card).
+    A card set below its maximum power runs slower, so every measurement
+    is reported beside this."""
+    import subprocess
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip()

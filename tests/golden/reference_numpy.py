@@ -1,10 +1,10 @@
 """Loop-faithful NumPy oracle of the reference numerics.
 
 This is an *independent transcription of the semantics* of
-``/root/reference/python_wrapper/seabreezediag/seabreeze_diag_python.f90``
+``python_wrapper/seabreezediag/seabreeze_diag_python.f90``
 and ``sobel.f90`` (the authoritative variant per SURVEY.md §0) into plain
 Python loops over float32 scalars, cited per routine below.  It exists so
-the vectorized TPU implementation can be validated with allclose golden
+the vectorized JAX implementation can be validated with allclose golden
 tests without compiling or copying the Fortran.  Everything here is
 deliberately slow and simple.
 

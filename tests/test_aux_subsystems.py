@@ -358,3 +358,33 @@ def test_checkpoint_sharded_roundtrip(tmp_path):
                                   np.asarray(state.winddir))
     # missing checkpoint -> None
     assert restore_state_sharded(str(tmp_path / "empty"), like) is None
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compile_cache_directory_rule(env_set, tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR wins and the code then sets no directory of
+    its own; unset, the cache lives at a fixed path inside the checkout."""
+    import jax
+    from seabreeze_param_tpu.utils import compile_cache
+
+    updates = {}
+    monkeypatch.setattr(compile_cache, "_enabled", False)
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, val: updates.__setitem__(name, val))
+    monkeypatch.setattr(compile_cache.os, "makedirs",
+                        lambda path, exist_ok=False: updates.setdefault(
+                            "makedirs", path))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert compile_cache.enable() == str(tmp_path)
+        assert "jax_compilation_cache_dir" not in updates
+        assert "makedirs" not in updates
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        want = os.path.join(repo, ".jax_cache")
+        assert compile_cache.enable() == want
+        assert updates["jax_compilation_cache_dir"] == want
+        assert updates["makedirs"] == want
+        with open(os.path.join(repo, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()

@@ -289,6 +289,41 @@ def test_create_nc_append(synthetic_run, tmp_path):
         assert np.ma.getdata(f.variables["thc"][:]).max() == 1.0
 
 
+def test_create_nc_writes_classic_netcdf(synthetic_run, tmp_path):
+    """CF output is classic netCDF (CDF-2) that scipy reads back unaided:
+    values, the missing value, the record axis and the coordinates."""
+    from scipy.io import netcdf_file
+    s = synthetic_run
+    meta = Meta(Config(s["conf"]))
+    path = tmp_path / "out.nc"
+    times = [datetime(1987, 1, 1, 6 * i) for i in range(3)]
+    field = np.random.default_rng(2).random(
+        (3, len(meta.lat), len(meta.lon))).astype(F)
+    field[:, 0, :] = 2.0e20
+    meta.create_nc(field, str(path), "sb_con", times)
+    assert path.read_bytes()[:4] == b"CDF\x02"
+    with netcdf_file(str(path), "r", mmap=False) as f:
+        assert f.dimensions["time"] is None           # unlimited record axis
+        sb = f.variables["sb_con"]
+        np.testing.assert_array_equal(sb[:], field)
+        assert np.float32(sb.missing_value) == np.float32(2.0e20)
+        np.testing.assert_array_equal(f.variables["lat"][:], meta.lat)
+        np.testing.assert_array_equal(f.variables["time"][:],
+                                      date2num(times, "seconds since "
+                                               "1970-01-01 00:00:00"))
+
+
+def test_hdf5_input_without_h5py_names_the_package(tmp_path, monkeypatch):
+    """netCDF-4 (HDF5) input is recognised by its signature; without h5py
+    the error says which package it needs instead of failing obscurely."""
+    import sys
+    path = tmp_path / "era5.nc"
+    path.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(504))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
+        Dataset(str(path))
+
+
 def test_composites_end_to_end(synthetic_run, tmp_path):
     """plot.py-equivalent: batch outputs -> seasonal composite nc -> maps."""
     from seabreeze_param_tpu.cli.composites import main as composites_main

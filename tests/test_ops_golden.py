@@ -1,4 +1,4 @@
-"""Golden allclose tests: vectorized TPU ops vs the loop-faithful NumPy
+"""Golden allclose tests: vectorized JAX ops vs the loop-faithful NumPy
 oracle (tests/golden/reference_numpy.py), per SURVEY §4c."""
 import numpy as np
 import pytest

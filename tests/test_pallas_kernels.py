@@ -1,262 +1,178 @@
-"""Pallas kernels vs their jnp references (interpret mode on CPU)."""
+"""The coastal-band ring kernel vs its jnp reference (interpret mode on CPU).
+
+The kernel sums every window in the XLA form's order, so in interpret mode
+(exact division) it must agree bit for bit; the trigger tail after it is
+shared XLA code.
+"""
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
 from seabreeze_param_tpu.core.grid import Grid
+from seabreeze_param_tpu.core.params import Params
+from seabreeze_param_tpu.core.state import TriggerState
+from seabreeze_param_tpu.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu.ops.coastline import get_edges
-from seabreeze_param_tpu.ops.distance import (distance_tables,
-                                              effective_radius,
-                                              min_haversine_param)
-from seabreeze_param_tpu.ops.pallas.distance_kernel import (
-    min_haversine_param_pallas)
+from seabreeze_param_tpu.ops.distance import coast_distance
+from seabreeze_param_tpu.ops.indexing import pad2d
+from seabreeze_param_tpu.ops.pallas import ring_kernel
+from seabreeze_param_tpu.ops.pallas.ring_kernel import ring_thc_pallas
+from seabreeze_param_tpu.ops.ring_search import ring_thc
+from seabreeze_param_tpu.ops.trigger import trigger_step
+
+MISSING = np.float32(2.0e20)
 
 
-@pytest.mark.parametrize("case", ["small_case", "global_case"])
-@pytest.mark.parametrize("tile_rows,tile_cols", [(32, 64), (128, 512),
-                                                 (16, 128)])
-def test_distance_kernel_matches_jnp(case, tile_rows, tile_cols, request):
-    c = request.getfixturevalue(case)
-    grid = Grid(lon=c["lon"], lat=c["lat"])
-    k = effective_radius(grid, 180.0)
-    tables = distance_tables(grid, k)
+def _cdist(c, grid):
     coast = get_edges(c["lsm"], c["ci_t"][0])
-
-    ref = np.asarray(min_haversine_param(coast, *tables, k))
-    got = np.asarray(min_haversine_param_pallas(coast, *tables, k,
-                                                tile_rows=tile_rows,
-                                                tile_cols=tile_cols,
-                                                interpret=True))
-    # identical candidate set; poisoned (empty-window) structure exact.
-    # Values may differ by 1 ULP: the single-extremum form's s + p*lo is
-    # FMA-contractable, and XLA contracts it differently per fusion
-    # context (tiles skipped by the coast-sparsity predicate produce the
-    # same poisoned BIG value the dense math would).
-    big = np.float32(1e30) / 2
-    np.testing.assert_array_equal(got > big, ref > big)
-    sel = ref < big
-    np.testing.assert_allclose(got[sel], ref[sel], rtol=3e-7, atol=0)
+    return coast_distance(coast, c["lsm"], grid, 180.0)
 
 
-@pytest.mark.parametrize("case", ["small_case", "global_case"])
-@pytest.mark.parametrize("tile_rows,tile_cols", [(32, 64), (128, 512),
-                                                 (16, 128)])
-def test_pass2_kernel_matches_jnp(case, tile_rows, tile_cols, request):
-    """The hybrid path's Pallas pass 2 (double-buffered strip DMA, sublane
-    taps) vs the XLA pass 2 — identical float32 op order -> bit-identical."""
-    from seabreeze_param_tpu.ops.distance import (pad_coast, pass1_extrema,
-                                                  pass2_min)
-    from seabreeze_param_tpu.ops.pallas.distance_kernel import pass2_min_pallas
+def _step_inputs(c, tt, seed):
+    rng = np.random.default_rng(seed)
+    shape = c["lsm"].shape
+    state = TriggerState(
+        tt=jnp.int32(tt),
+        thc=jnp.asarray(290 + rng.standard_normal(shape), jnp.float32),
+        windspeed=jnp.asarray(5 + rng.random(shape), jnp.float32),
+        winddir=jnp.asarray(360 * rng.random(shape) - 180, jnp.float32))
+    theta = jnp.asarray(288 + 5 * rng.standard_normal(shape), jnp.float32)
+    nlev = len(c["p"])
+    u = jnp.asarray(6 * rng.standard_normal((nlev,) + shape), jnp.float32)
+    v = jnp.asarray(6 * rng.standard_normal((nlev,) + shape), jnp.float32)
+    return state, theta, u, v
 
-    c = request.getfixturevalue(case)
-    grid = Grid(lon=c["lon"], lat=c["lat"])
-    k = effective_radius(grid, 180.0)
-    sdphi2, po, sdlam2 = distance_tables(grid, k)
-    coast = get_edges(c["lsm"], c["ci_t"][0])
-    cpad = pad_coast(jnp.asarray(coast), k)
 
-    def close_1ulp(a, b):
-        # s + p*lo is FMA-contractable in the single-extremum form; XLA
-        # contracts differently per fusion context -> 1-ULP tolerance with
-        # exact poison structure
-        big = np.float32(1e30) / 2
-        np.testing.assert_array_equal(a > big, b > big)
-        sel = b < big
-        np.testing.assert_allclose(a[sel], b[sel], rtol=3e-7, atol=0)
-
-    # single-extremum production form (po >= 0 from distance_tables)
-    Mmin, none = pass1_extrema(cpad, sdlam2, k)
-    assert none is None
-    ref = np.asarray(pass2_min(Mmin, None, sdphi2, po, k))
-    got = np.asarray(pass2_min_pallas(Mmin, None, sdphi2, po, k,
-                                      tile_rows=tile_rows,
-                                      tile_cols=tile_cols, interpret=True))
-    close_1ulp(got, ref)
-
-    # the optional two-extremum form stays consistent with it
-    Mmin2, Mmax2 = pass1_extrema(cpad, sdlam2, k, need_max=True)
-    ref2 = np.asarray(pass2_min(Mmin2, Mmax2, sdphi2, po, k))
-    got2 = np.asarray(pass2_min_pallas(Mmin2, Mmax2, sdphi2, po, k,
-                                       tile_rows=tile_rows,
-                                       tile_cols=tile_cols, interpret=True))
-    np.testing.assert_array_equal(got2, ref2)
-    close_1ulp(ref2, ref)
+def _assert_step_equal(got, ref):
+    (g_state, g_out), (r_state, r_out) = got, ref
+    for key in ("sb_con", "t0", "windspeed", "winddir"):
+        np.testing.assert_array_equal(np.asarray(g_out[key]),
+                                      np.asarray(r_out[key]), err_msg=key)
+    assert int(g_state.tt) == int(r_state.tt)
+    for name in ("thc", "windspeed", "winddir"):
+        np.testing.assert_array_equal(np.asarray(getattr(g_state, name)),
+                                      np.asarray(getattr(r_state, name)),
+                                      err_msg=name)
 
 
 @pytest.mark.parametrize("case", ["small_case", "global_case"])
 @pytest.mark.parametrize("tile_rows,tile_cols", [(32, 64), (64, 256),
                                                  (16, 128)])
-def test_ring_kernel_matches_jnp(case, tile_rows, tile_cols, request):
-    """Fused ring-search kernel (2-D tiled, coastal-tile skip) vs
-    ops.ring_search with the same coastal-band mask (same window sums in the
-    same order -> tight tolerance)."""
-    from seabreeze_param_tpu.models.pipeline import TriggerPipeline
-    from seabreeze_param_tpu.ops.indexing import pad2d
-    from seabreeze_param_tpu.ops.pallas.ring_kernel import (
-        ring_thc_pallas_padded)
-    from seabreeze_param_tpu.ops.ring_search import ring_thc
-
+def test_ring_kernel_matches_jnp(case, tile_rows, tile_cols, request,
+                                 monkeypatch):
+    """Ring kernel (2-D blocks, coastal-block skip, early exit) vs
+    ops.ring_search with the same coastal-band mask: same window sums in
+    the same order -> bit-identical."""
+    monkeypatch.setattr(ring_kernel, "BLOCK_ROWS", tile_rows)
+    monkeypatch.setattr(ring_kernel, "BLOCK_COLS", tile_cols)
     c = request.getfixturevalue(case)
     grid = Grid(lon=c["lon"], lat=c["lat"])
-    pipe = TriggerPipeline(grid)
-    nn = pipe.nn_max
-    coast = get_edges(c["lsm"], c["ci_t"][0])
-    from seabreeze_param_tpu.ops.distance import coast_distance
-    cdist = coast_distance(coast, c["lsm"], grid, 180.0)
+    nn = TriggerPipeline(grid).nn_max
+    cdist = _cdist(c, grid)
     rng = np.random.default_rng(4)
     t0 = (290.0 + 8.0 * rng.standard_normal(c["lsm"].shape)).astype(
         np.float32)
 
     ref, _ = ring_thc(jnp.asarray(t0), cdist, nn, maxdist=180.0)
-    got = ring_thc_pallas_padded(pad2d(jnp.asarray(t0), nn, nn),
-                                 pad2d(cdist, nn, nn), cdist, nn,
-                                 maxdist=180.0, tile_rows=tile_rows,
-                                 tile_cols=tile_cols, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-4)
-    # the masked region must be exactly zero in both
+    got = ring_thc_pallas(pad2d(jnp.asarray(t0), nn, nn),
+                          pad2d(cdist, nn, nn), cdist, nn, 180.0,
+                          interpret=True)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
     non_coastal = np.abs(np.asarray(cdist)) > 180.0
-    assert (np.asarray(got)[non_coastal] == 0.0).all()
+    assert non_coastal.any() and (np.asarray(got)[non_coastal] == 0.0).all()
 
 
 @pytest.mark.parametrize("case", ["small_case", "global_case"])
 @pytest.mark.parametrize("tt,tile", [(1, (32, 64)), (5, (16, 128)),
                                      (15, (64, 256))])
-def test_fused_trigger_kernel_matches_xla_step(case, tt, tile, request):
-    """The fused ring+tail kernel must reproduce the XLA trigger_step
-    exactly (same op order in the tail) across the state cadences:
-    tt=1 (first-step seeding), tt=5 (no wind refresh at the default
-    24-min/6-h cadence), tt=15 (6-hourly refresh step)."""
-    import jax.numpy as jnp
-    from seabreeze_param_tpu.core.params import Params
-    from seabreeze_param_tpu.core.state import TriggerState
-    from seabreeze_param_tpu.models.pipeline import TriggerPipeline
-    from seabreeze_param_tpu.ops.distance import coast_distance
-    from seabreeze_param_tpu.ops.indexing import pad2d
-    from seabreeze_param_tpu.ops.pallas.ring_kernel import (
-        ring_trigger_pallas_padded)
-    from seabreeze_param_tpu.ops.trigger import trigger_step, wind_at_level
-
+def test_fused_trigger_kernel_matches_xla_step(case, tt, tile, request,
+                                               monkeypatch):
+    """trigger_step with the ring kernel at a given block shape reproduces
+    the XLA trigger_step exactly across the state cadences: tt=1
+    (first-step seeding), tt=5 (no wind refresh at the default 24-min/6-h
+    cadence), tt=15 (6-hourly refresh step)."""
+    monkeypatch.setattr(ring_kernel, "BLOCK_ROWS", tile[0])
+    monkeypatch.setattr(ring_kernel, "BLOCK_COLS", tile[1])
     c = request.getfixturevalue(case)
     grid = Grid(lon=c["lon"], lat=c["lat"])
-    pipe = TriggerPipeline(grid)
     params = Params()
-    nn = pipe.nn_max
-    coast = get_edges(c["lsm"], c["ci_t"][0])
-    cdist = coast_distance(coast, c["lsm"], grid, 180.0)
-
-    rng = np.random.default_rng(7)
-    shape = c["lsm"].shape
-    state = TriggerState(
-        tt=jnp.int32(tt),
-        thc=jnp.asarray(290 + rng.standard_normal(shape), jnp.float32),
-        windspeed=jnp.asarray(5 + rng.random(shape), jnp.float32),
-        winddir=jnp.asarray(360 * rng.random(shape) - 180, jnp.float32))
-    theta = jnp.asarray(288 + 5 * rng.standard_normal(shape), jnp.float32)
-    nlev = len(c["p"])
-    u = jnp.asarray(6 * rng.standard_normal((nlev,) + shape), jnp.float32)
-    v = jnp.asarray(6 * rng.standard_normal((nlev,) + shape), jnp.float32)
-
-    ref_state, ref_out = trigger_step(state, theta, u, v, cdist, c["z"],
-                                      c["std"], c["p"], params, nn,
-                                      use_pallas=False)
-
-    # fused kernel, driven with the same t0/wind the XLA path derives
-    from seabreeze_param_tpu.ops.orography import sigmoid_weight
-    from seabreeze_param_tpu.ops.trigger import sea_level_temperature
-    smod = sigmoid_weight(c["std"])
-    t0 = sea_level_temperature(theta, c["z"], smod)
-    ws_new, wd_new = wind_at_level(u, v, c["p"], params.target_plev_pa)
-    is_first = state.tt < 2
-    upd = jnp.mod(state.tt.astype(jnp.float32) * params.timestep_seconds,
-                  params.target_time_seconds) < jnp.float32(1.0e-4)
-    sb, ws_o, wd_o = ring_trigger_pallas_padded(
-        pad2d(t0, nn, nn), pad2d(cdist, nn, nn), cdist, ws_new, wd_new,
-        state.windspeed, state.winddir, is_first, upd, params, nn,
-        tile_rows=tile[0], tile_cols=tile[1], interpret=True)
-
-    np.testing.assert_allclose(np.asarray(sb), np.asarray(ref_out["sb_con"]),
-                               rtol=2e-5, atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(ws_o),
-                                  np.asarray(ref_state.windspeed))
-    np.testing.assert_array_equal(np.asarray(wd_o),
-                                  np.asarray(ref_state.winddir))
+    nn = TriggerPipeline(grid).nn_max
+    cdist = _cdist(c, grid)
+    state, theta, u, v = _step_inputs(c, tt, seed=7)
+    args = (state, theta, u, v, cdist, c["z"], c["std"], c["p"], params, nn)
+    _assert_step_equal(
+        trigger_step(*args, use_pallas=True, pallas_interpret=True),
+        trigger_step(*args, use_pallas=False))
 
 
 @pytest.mark.parametrize("case", ["small_case", "global_case"])
 @pytest.mark.parametrize("tt", [1, 5, 15])
 def test_trigger_step_pallas_matches_xla(case, tt, request):
-    """The COMPLETE use_pallas=True trigger_step (interpret mode) vs the XLA
-    path — all four output slots AND the carried state.  In particular the
-    last-lat-row quirk: outputs must be zero there (reference never writes
-    that row) while the wind STATE stays frozen at the carried value."""
-    import jax.numpy as jnp
-    from seabreeze_param_tpu.core.params import Params
-    from seabreeze_param_tpu.core.state import TriggerState
-    from seabreeze_param_tpu.models.pipeline import TriggerPipeline
-    from seabreeze_param_tpu.ops.distance import coast_distance
-    from seabreeze_param_tpu.ops.trigger import trigger_step
-
+    """The complete use_pallas=True trigger_step (interpret mode) vs the XLA
+    path — all four output slots and the carried state.  In particular the
+    last-lat-row quirk: outputs are zero there (the reference never writes
+    that row) while the wind state stays frozen at the carried value."""
     c = request.getfixturevalue(case)
     grid = Grid(lon=c["lon"], lat=c["lat"])
-    pipe = TriggerPipeline(grid)
     params = Params()
-    nn = pipe.nn_max
-    coast = get_edges(c["lsm"], c["ci_t"][0])
-    cdist = coast_distance(coast, c["lsm"], grid, 180.0)
-
-    rng = np.random.default_rng(11)
-    shape = c["lsm"].shape
-    state = TriggerState(
-        tt=jnp.int32(tt),
-        thc=jnp.asarray(290 + rng.standard_normal(shape), jnp.float32),
-        windspeed=jnp.asarray(5 + rng.random(shape), jnp.float32),
-        winddir=jnp.asarray(360 * rng.random(shape) - 180, jnp.float32))
-    theta = jnp.asarray(288 + 5 * rng.standard_normal(shape), jnp.float32)
-    nlev = len(c["p"])
-    u = jnp.asarray(6 * rng.standard_normal((nlev,) + shape), jnp.float32)
-    v = jnp.asarray(6 * rng.standard_normal((nlev,) + shape), jnp.float32)
-
-    ref_state, ref_out = trigger_step(state, theta, u, v, cdist, c["z"],
-                                      c["std"], c["p"], params, nn,
-                                      use_pallas=False)
-    got_state, got_out = trigger_step(state, theta, u, v, cdist, c["z"],
-                                      c["std"], c["p"], params, nn,
-                                      use_pallas=True, pallas_interpret=True)
-
-    for key in ("sb_con", "t0", "windspeed", "winddir"):
-        g, r = np.asarray(got_out[key]), np.asarray(ref_out[key])
-        miss = r == np.float32(2.0e20)
-        np.testing.assert_array_equal(g == np.float32(2.0e20), miss,
-                                      err_msg=key)
-        np.testing.assert_allclose(g[~miss], r[~miss], rtol=2e-5, atol=2e-4,
-                                   err_msg=key)
-    assert int(got_state.tt) == int(ref_state.tt)
-    np.testing.assert_allclose(np.asarray(got_state.thc),
-                               np.asarray(ref_state.thc), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(got_state.windspeed),
-                                  np.asarray(ref_state.windspeed))
-    np.testing.assert_array_equal(np.asarray(got_state.winddir),
-                                  np.asarray(ref_state.winddir))
-    # the quirk itself: zero outputs, frozen state, in the last real row
+    nn = TriggerPipeline(grid).nn_max
+    cdist = _cdist(c, grid)
+    state, theta, u, v = _step_inputs(c, tt, seed=11)
+    args = (state, theta, u, v, cdist, c["z"], c["std"], c["p"], params, nn)
+    got = trigger_step(*args, use_pallas=True, pallas_interpret=True)
+    _assert_step_equal(got, trigger_step(*args, use_pallas=False))
+    got_state, got_out = got
     np.testing.assert_array_equal(np.asarray(got_out["windspeed"])[-1], 0.0)
     np.testing.assert_array_equal(np.asarray(got_state.windspeed)[-1],
                                   np.asarray(state.windspeed)[-1])
 
 
+@pytest.mark.parametrize("case", ["small_case", "global_case"])
+@pytest.mark.parametrize("tile", [(8, 32), (16, 64), (32, 16)])
+def test_ring_kernel_partial_blocks(case, tile, request, monkeypatch):
+    """A grid that is no multiple of the block shape (partial edge blocks,
+    sentinel-padded centre) through the whole trigger_step, last-row quirk
+    included, against the XLA path."""
+    monkeypatch.setattr(ring_kernel, "BLOCK_ROWS", tile[0])
+    monkeypatch.setattr(ring_kernel, "BLOCK_COLS", tile[1])
+    c = request.getfixturevalue(case)
+    nlat, nlon = len(c["lat"]) - 3, len(c["lon"]) - 5
+    crop = {k: (c[k][..., :nlat, :nlon] if k not in ("lat", "lon", "p")
+                else c[k]) for k in c}
+    crop["lat"], crop["lon"] = c["lat"][:nlat], c["lon"][:nlon]
+    assert nlat % tile[0] and nlon % tile[1]
+    grid = Grid(lon=crop["lon"], lat=crop["lat"])
+    nn = TriggerPipeline(grid).nn_max
+    cdist = _cdist(crop, grid)
+    state, theta, u, v = _step_inputs(crop, 15, seed=13)
+    args = (state, theta, u, v, cdist, crop["z"], crop["std"], crop["p"],
+            Params(), nn)
+    got = trigger_step(*args, use_pallas=True, pallas_interpret=True)
+    _assert_step_equal(got, trigger_step(*args, use_pallas=False))
+    np.testing.assert_array_equal(np.asarray(got[1]["sb_con"])[-1], 0.0)
+    assert (np.asarray(got[1]["sb_con"]) == MISSING).any()
+
+
+def _assert_scan_equal(got, ref, nsteps, shape):
+    (got_state, got_out), (ref_state, ref_out) = got, ref
+    for key in ("sb_con", "t0", "windspeed", "winddir"):
+        g, r = np.asarray(got_out[key]), np.asarray(ref_out[key])
+        assert g.shape == r.shape == (nsteps,) + shape, key
+        np.testing.assert_array_equal(g, r, err_msg=key)
+    assert int(got_state.tt) == int(ref_state.tt)
+    for name in ("thc", "windspeed", "winddir"):
+        np.testing.assert_array_equal(np.asarray(getattr(got_state, name)),
+                                      np.asarray(getattr(ref_state, name)),
+                                      err_msg=name)
+
+
 @pytest.mark.parametrize("with_ci", [True, False])
 def test_stacked_scan_runner_matches_xla(small_case, with_ci):
-    """The production Pallas SCAN (in-place stacked outputs via
-    input_output_aliases + scalar-prefetch slot index,
-    ``TriggerPipeline._make_stacked_scan``) vs the plain XLA ys-stacked
-    scan: every per-step output slot and the final state must agree over a
-    multi-step run that crosses the 6-hourly wind-refresh cadence
-    (tt=14..17)."""
-    import jax.numpy as jnp
-    from seabreeze_param_tpu.core.state import TriggerState
-    from seabreeze_param_tpu.models.pipeline import TriggerPipeline
-
-    c = request_case = small_case
+    """The use_pallas scan (TriggerPipeline.run) vs the plain XLA scan:
+    every per-step output slot and the final state agree over a multi-step
+    run that crosses the 6-hourly wind-refresh cadence (tt=14..16)."""
+    c = small_case
     nsteps = 3
     nlat, nlon = len(c["lat"]), len(c["lon"])
     grid = Grid(lon=c["lon"], lat=c["lat"])
@@ -274,54 +190,34 @@ def test_stacked_scan_runner_matches_xla(small_case, with_ci):
     ci_t = c["ci_t"][:nsteps] if with_ci else None
     args = (c["theta_t"][:nsteps], c["u_t"][:nsteps], c["v_t"][:nsteps],
             c["lsm"], c["z"], c["std"], c["p"])
-
-    ref_state, ref_out = TriggerPipeline(grid).run(state0(), *args,
-                                                   ci_t=ci_t)
+    ref = TriggerPipeline(grid).run(state0(), *args, ci_t=ci_t)
     pipe = TriggerPipeline(grid, use_pallas=True, pallas_interpret=True)
-    got_state, got_out = pipe.run(state0(), *args, ci_t=ci_t)
-
-    for key in ("sb_con", "t0", "windspeed", "winddir"):
-        g, r = np.asarray(got_out[key]), np.asarray(ref_out[key])
-        assert g.shape == r.shape == (nsteps, nlat, nlon), key
-        miss = r == np.float32(2.0e20)
-        np.testing.assert_array_equal(g == np.float32(2.0e20), miss,
-                                      err_msg=key)
-        np.testing.assert_allclose(g[~miss], r[~miss], rtol=2e-5, atol=2e-4,
-                                   err_msg=key)
-    assert int(got_state.tt) == int(ref_state.tt)
-    np.testing.assert_allclose(np.asarray(got_state.thc),
-                               np.asarray(ref_state.thc), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(got_state.windspeed),
-                                  np.asarray(ref_state.windspeed))
-    np.testing.assert_array_equal(np.asarray(got_state.winddir),
-                                  np.asarray(ref_state.winddir))
+    _assert_scan_equal(pipe.run(state0(), *args, ci_t=ci_t), ref, nsteps,
+                       (nlat, nlon))
 
 
-def test_stacked_compact_multi_tile_moving_coast():
-    """Compacted-launch correctness on a multi-tile grid where some tiles
-    have NO coastal cell (never launch -> pre-filled defaults + state
-    passthrough) and a tile BECOMES coastal mid-run when sea ice appears
-    (the monotone ever-coastal set must pick it up and keep it).  Full
-    parity against the XLA scan."""
-    import jax.numpy as jnp
-    from seabreeze_param_tpu.core.state import TriggerState
-    from seabreeze_param_tpu.models.pipeline import TriggerPipeline
-
+def test_stacked_compact_multi_tile_moving_coast(monkeypatch):
+    """Block skipping on a multi-block grid where some blocks have NO
+    coastal cell (they store zeros without a ring loop) and a block BECOMES
+    coastal mid-run when sea ice appears.  Full parity against the XLA
+    scan."""
+    monkeypatch.setattr(ring_kernel, "BLOCK_ROWS", 32)
+    monkeypatch.setattr(ring_kernel, "BLOCK_COLS", 128)
     F = np.float32
     nlat, nlon, nlev, nsteps = 64, 512, 3, 4
-    # 4 column-tiles of 128.  Coastlines: the continent edge at x=20
-    # (tile 0) and the index-periodic wrap seam at x=0/511 (tiles 0+3 —
+    # 4 column-blocks of 128.  Coastlines: the continent edge at x=20
+    # (block 0) and the index-periodic wrap seam at x=0/511 (blocks 0+3 —
     # the reference's stencils wrap in index space, so the regional
-    # domain's east/west edges read as coast).  Tiles 1 and 2 are far
+    # domain's east/west edges read as coast).  Blocks 1 and 2 are far
     # beyond 2*maxdist -> never coastal... until step 2, when sea ice
-    # appears at x ~ 300 and creates a new ice coastline in tile 2.
+    # appears at x ~ 300 and creates a new ice coastline in block 2.
     lat = np.linspace(20.0, -19.7, nlat).astype(F)
     lon = np.linspace(0.0, 100.0, nlon, endpoint=False).astype(F)
     rng = np.random.default_rng(9)
     x = np.arange(nlon)[None, :].repeat(nlat, 0)
     lsm = (x < 20).astype(F) * (0.6 + 0.4 * rng.random((nlat, nlon))).astype(F)
     ci_t = np.zeros((nsteps, nlat, nlon), F)
-    ci_t[2:, :, 300:310] = 0.9          # new ice coastline, tile 2
+    ci_t[2:, :, 300:310] = 0.9          # new ice coastline, block 2
     z = (500.0 * lsm * rng.random((nlat, nlon))).astype(F)
     std = (90.0 * lsm * rng.random((nlat, nlon))).astype(F)
     p = np.array([100000.0, 85000.0, 70000.0], F)
@@ -330,19 +226,12 @@ def test_stacked_compact_multi_tile_moving_coast():
     v = (6.0 * rng.standard_normal((nsteps, nlev, nlat, nlon))).astype(F)
 
     grid = Grid(lon=lon, lat=lat)
-    # sanity: the tile grid really is multi-tile with a non-coastal tile
-    from seabreeze_param_tpu.ops.pallas.ring_kernel import (
-        coastal_tile_pred, stacked_tile_extents, _default_tiles)
     pipe_x = TriggerPipeline(grid)
-    cd0 = np.asarray(pipe_x.distance_field(jnp.asarray(lsm),
-                                           jnp.asarray(ci_t[0])))
-    hp, wp = stacked_tile_extents(nlat, nlon, pipe_x.nn_max)
-    tr, tc = _default_tiles(pipe_x.nn_max, None, None)
-    pad = np.full((hp, wp), 12000.0, F)
-    pad[:nlat, :nlon] = cd0
-    pred0 = np.asarray(coastal_tile_pred(jnp.asarray(pad), 180.0,
-                                         min(tr, nlat), min(tc, nlon)))
-    assert pred0.size >= 4 and (~pred0).any() and pred0.any()
+    coastal = [np.abs(np.asarray(pipe_x.distance_field(
+        jnp.asarray(lsm), jnp.asarray(ci_t[t])))) <= 180.0 for t in (0, 2)]
+    per_block = [cm.reshape(2, 32, 4, 128).any(axis=(1, 3)) for cm in coastal]
+    assert per_block[0].any() and not per_block[0][:, 2].any()
+    assert per_block[1][:, 2].any()
 
     rngs = np.random.default_rng(3)
     ws0 = (5 + rngs.random((nlat, nlon))).astype(F)
@@ -355,18 +244,30 @@ def test_stacked_compact_multi_tile_moving_coast():
                             winddir=jnp.asarray(wd0))
 
     args = (theta, u, v, lsm, z, std, p)
-    ref_state, ref_out = pipe_x.run(state0(), *args, ci_t=ci_t)
+    ref = pipe_x.run(state0(), *args, ci_t=ci_t)
     pipe = TriggerPipeline(grid, use_pallas=True, pallas_interpret=True)
-    got_state, got_out = pipe.run(state0(), *args, ci_t=ci_t)
+    _assert_scan_equal(pipe.run(state0(), *args, ci_t=ci_t), ref, nsteps,
+                       (nlat, nlon))
 
-    for key in ("sb_con", "t0", "windspeed", "winddir"):
-        g, r = np.asarray(got_out[key]), np.asarray(ref_out[key])
-        miss = r == np.float32(2.0e20)
-        np.testing.assert_array_equal(g == np.float32(2.0e20), miss,
-                                      err_msg=key)
-        np.testing.assert_allclose(g[~miss], r[~miss], rtol=2e-5, atol=2e-4,
-                                   err_msg=key)
-    np.testing.assert_array_equal(np.asarray(got_state.windspeed),
-                                  np.asarray(ref_state.windspeed))
-    np.testing.assert_array_equal(np.asarray(got_state.winddir),
-                                  np.asarray(ref_state.winddir))
+
+@pytest.mark.chip
+@pytest.mark.parametrize("case", ["small_case", "global_case"])
+def test_ring_kernel_compiled_on_card(case, request):
+    """The kernel as Triton compiles it for the card (no interpret mode)
+    against the XLA ring search on the same card: bit-identical, because
+    both sum in the same order and divide alike there."""
+    import jax
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU (run: JAX_PLATFORMS=cuda,cpu "
+                    "python -m pytest tests -m chip)")
+    c = request.getfixturevalue(case)
+    grid = Grid(lon=c["lon"], lat=c["lat"])
+    nn = TriggerPipeline(grid).nn_max
+    cdist = _cdist(c, grid)
+    t0 = jnp.asarray((290.0 + 8.0 * np.random.default_rng(4).standard_normal(
+        c["lsm"].shape)).astype(np.float32))
+    ref = jax.jit(lambda t, cd: ring_thc(t, cd, nn, maxdist=180.0)[0])(
+        t0, cdist)
+    got = jax.jit(lambda t, cd: ring_thc_pallas(
+        pad2d(t, nn, nn), pad2d(cd, nn, nn), cd, nn, 180.0))(t0, cdist)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))

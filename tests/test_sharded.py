@@ -122,16 +122,14 @@ def test_sharded_overlap_matches_basic(small_case):
 
 @pytest.mark.parametrize("mesh_shape", [(2, 4), (1, 8)])
 def test_sharded_pallas_production_path(small_case, mesh_shape):
-    """THE production combination on a TPU pod — shard_map + fused Pallas
-    ring/trigger kernel + hybrid distance (XLA pass 1 / Pallas pass 2) —
+    """The GPU production combination — shard_map + the ring kernel —
     executed on the virtual CPU mesh via interpret mode, against the
     single-device XLA reference."""
     c = small_case
     nsteps = 2
     grid = Grid(lon=c["lon"], lat=c["lat"])
     ref_state, ref_out = _run_single(TriggerPipeline(grid), c, nsteps)
-    pipe = TriggerPipeline(grid, use_pallas=True, distance_impl="hybrid",
-                           pallas_interpret=True)
+    pipe = TriggerPipeline(grid, use_pallas=True, pallas_interpret=True)
     got_state, got_out = _run_sharded(pipe, mesh_shape, c, nsteps)
     _assert_outputs_close(got_out, ref_out)
     _assert_state_close(got_state, ref_state)
@@ -206,29 +204,9 @@ def test_sharded_3d_pressure_matches_single_device(small_case):
     _assert_state_close(got_state, ref_state)
 
 
-def test_sharded_dma_halo_backend(small_case):
-    """The remote-DMA halo backend (Pallas make_async_remote_copy, basic
-    step structure) must reproduce the single-device pipeline on the CPU
-    mesh under interpret mode."""
-    c = small_case
-    nsteps = 2
-    grid = Grid(lon=c["lon"], lat=c["lat"])
-    ref_state, ref_out = _run_single(TriggerPipeline(grid), c, nsteps)
-    pipe = TriggerPipeline(grid, pallas_interpret=True)
-    sp = ShardedPipeline(pipe, make_mesh((2, 4)), overlap=False,
-                         halo_backend="dma")
-    nlat, nlon = len(c["lat"]), len(c["lon"])
-    got_state, got_out = sp.run(_zero_state(nlat, nlon),
-                                c["theta_t"][:nsteps], c["u_t"][:nsteps],
-                                c["v_t"][:nsteps], c["lsm"], c["z"],
-                                c["std"], c["p"], ci_t=c["ci_t"][:nsteps])
-    _assert_outputs_close(got_out, ref_out)
-    _assert_state_close(got_state, ref_state)
-
-
 def test_sharded_pallas_wind_refresh_cadence(small_case):
     """Production combination at the 6-hourly wind-refresh step (tt=15):
-    the sharded fused-kernel path must agree with the single-device XLA
+    the sharded ring-kernel path must agree with the single-device XLA
     path on the refresh branch too."""
     import jax.numpy as jnp
     c = small_case
@@ -250,8 +228,7 @@ def test_sharded_pallas_wind_refresh_cadence(small_case):
                                       c["u_t"][:nsteps], c["v_t"][:nsteps],
                                       c["lsm"], c["z"], c["std"], c["p"],
                                       ci_t=c["ci_t"][:nsteps])
-    pipe = TriggerPipeline(grid, use_pallas=True, distance_impl="hybrid",
-                           pallas_interpret=True)
+    pipe = TriggerPipeline(grid, use_pallas=True, pallas_interpret=True)
     sp = ShardedPipeline(pipe, make_mesh((2, 4)))
     got_state, got_out = sp.run(state(), c["theta_t"][:nsteps],
                                 c["u_t"][:nsteps], c["v_t"][:nsteps],
@@ -278,4 +255,29 @@ def test_sharded_clean_periodic_mode(small_case):
                                 c["v_t"][:nsteps], c["lsm"], c["z"],
                                 c["std"], c["p"], ci_t=c["ci_t"][:nsteps])
     _assert_outputs_close(got_out, ref_out)
+    _assert_state_close(got_state, ref_state)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (8, 1)])
+def test_sharded_lat_padding_edge_rows(mesh_shape):
+    """Replication-padding rows below the last real latitude must look, to
+    the ring search, exactly like the reference's lat clamp (the edge row
+    itself): their own Sobel coastline can differ from the edge row's, and
+    with it their cdist class.  No mismatch fraction is allowed here."""
+    import bench
+    nlat, nlon, nsteps = 361, 720, 3
+    lsm, z, std, pres, theta, u, v, ci = bench.make_world(nlat, nlon, 4,
+                                                          nsteps, seed=0)
+    grid = Grid.regular(nlat, nlon, lat0=90.0, lat1=-90.0)
+    pipe = TriggerPipeline(grid)
+    args = (theta, u, v, lsm, z, std, pres)
+    ref_state, ref_out = pipe.run(_zero_state(nlat, nlon), *args, ci_t=ci)
+    sp = ShardedPipeline(pipe, make_mesh(mesh_shape))
+    assert sp.nlat_pad > nlat
+    got_state, got_out = sp.run(_zero_state(nlat, nlon), *args, ci_t=ci)
+    for key in ("sb_con", "t0", "windspeed", "winddir"):
+        g, r = np.asarray(got_out[key]), np.asarray(ref_out[key])
+        np.testing.assert_array_equal(g == np.float32(2.0e20),
+                                      r == np.float32(2.0e20), err_msg=key)
+        np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-4, err_msg=key)
     _assert_state_close(got_state, ref_state)
